@@ -1,11 +1,11 @@
-/* pdwt_cpu — native CPU reference engine for the TPU wavelet framework.
+/* pdwt_cpu — native CPU reference engine for the JAX wavelet framework.
  *
  * Implements the exact transform index semantics of the JAX engines
  * (see pdwt_tpu/core/conv.py docstring; derived from the reference CUDA
- * kernels, /root/reference/src/separable.cu:91-328,409-626) with double
+ * kernels, src/separable.cu:91-328,409-626) with double
  * accumulation, as the high-accuracy native oracle + standalone CLI
  * backend.  The reference's native components (its CUDA library) get this
- * native CPU equivalent; the TPU path is the JAX/XLA engine.
+ * native CPU equivalent; the device path is the JAX/XLA engine.
  *
  * All functions return 0 on success, nonzero on argument errors.
  * Coefficient buffers are caller-allocated; sizes follow the decimation

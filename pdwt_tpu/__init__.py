@@ -1,6 +1,6 @@
-"""pdwt-tpu: a TPU-native discrete wavelet transform framework.
+"""pdwt-tpu: a JAX discrete wavelet transform framework.
 
-Capabilities (re-designed TPU-first, not ported) of pierrepaleo/PDWT:
+Capabilities (re-designed for XLA, not ported) of pierrepaleo/PDWT:
 multi-level 1D/2D DWT and stationary (undecimated) SWT, forward and
 inverse, separable and non-separable, periodic boundary extension on
 arbitrary (including odd) sizes, a 72-wavelet filter bank plus custom
@@ -27,7 +27,7 @@ from .api import Wavelets, WaveletSpec
 from .api_extras import DualTree, Starlet
 from .api_packets import WaveletPackets
 from .core.modes import MODES
-from .core.precision import TIERS, precision_scope
+from .core.precision import TIERS
 from .filters import (
     Wavelet,
     get_wavelet,
@@ -44,6 +44,6 @@ __all__ = [
     "Wavelet",
     "get_wavelet", "list_wavelets", "make_custom_wavelet",
     "register_wavelet", "quad_filters",
-    "MODES", "TIERS", "precision_scope",
+    "MODES", "TIERS",
     "core", "filters", "models", "ops", "parallel", "utils",
 ]

@@ -36,7 +36,7 @@ from .haar import haar_dwt1d, haar_dwt2d, haar_idwt1d, haar_idwt2d
 from .shapes import (coeff_shapes_1d, coeff_shapes_2d, coeff_shapes_3d,
                      div2, level_sizes, max_level)
 from .modes import MODES, dec_len, extend, rec_len
-from .precision import TIERS, precision_scope
+from .precision import TIERS
 from . import conv, modes, precision
 
 __all__ = [
@@ -60,6 +60,6 @@ __all__ = [
     "coeff_shapes_1d", "coeff_shapes_2d", "coeff_shapes_3d",
     "div2", "level_sizes", "max_level",
     "MODES", "dec_len", "rec_len", "extend",
-    "TIERS", "precision_scope",
+    "TIERS",
     "conv", "modes", "precision",
 ]

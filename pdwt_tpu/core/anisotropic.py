@@ -8,10 +8,10 @@ This matters for anisotropic data: tomography stacks whose depth
 resolution differs from the in-plane resolution, sinograms (angle vs
 detector), seismic panels.
 
-TPU-first formulation: the per-axis operators commute, so the whole
+Formulation: the per-axis operators commute, so the whole
 transform is ``ndim`` passes of the batched-1D engine — each pass
 transforms EVERY line along one axis at once (all other axes ride the
-batch dimension of the fused Pallas 1D kernels on TPU), then packs the
+batch dimension), then packs the
 pyramid into one contiguous array in wavedec order
 ``[A_L | D_L | D_{L-1} | ... | D_1]`` along that axis.  Packing is a
 static relayout; the next axis' transform is line-wise independent of

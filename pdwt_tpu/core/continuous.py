@@ -2,7 +2,7 @@
 
 Beyond the reference (PDWT is a DWT/SWT library); included because the
 same tomography/signal users reach for scaleograms next, and the
-transform maps perfectly onto TPU: ONE forward FFT of the signal, a
+transform maps perfectly onto XLA: ONE forward FFT of the signal, a
 broadcast multiply against the whole scale bank, ONE batched inverse
 FFT over a (scales, n) block — all XLA-fused, no Python loop over
 scales.
@@ -23,7 +23,7 @@ Analysis") exactly, so the reconstruction constants are citable:
 
 2D: :func:`cwt2d` is the oriented 2D Morlet scaleogram (one 2D FFT,
 one broadcast multiply against the whole (scale, angle) bank, one
-batched inverse FFT — the same TPU shape as the 1D path), and
+batched inverse FFT — the same shape as the 1D path), and
 :func:`cone_of_influence` marks the edge-affected region of a 1D
 scaleogram (T&C §3g).
 

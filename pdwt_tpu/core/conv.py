@@ -2,7 +2,7 @@
 
 This module defines the exact index semantics of the transforms, derived
 from the reference CUDA kernels but re-cast as gather/convolution algebra
-that XLA lowers onto the TPU's convolution/vector units:
+that XLA compiles for the device:
 
 Forward decimated analysis (reference: src/separable.cu:91-131):
     c  = hlen//2 if hlen odd else hlen//2 - 1      (even taps: center left)
@@ -27,21 +27,19 @@ per pass (reference: src/separable.cu:581-584).
 
 Everything operates on NCHW arrays.  Three interchangeable backends:
 
-* ``fma``   — the TPU-native path (default): polyphase decomposition into
-              contiguous slices + tap-by-tap FMA.  A wavelet filter pass is
-              a short FIR over a huge array — pure VPU streaming work that
-              XLA fuses into a single memory-bound kernel.  The TPU conv
-              unit is useless here (C=1, K=2 grouped convs lower ~1000x
-              off speed-of-light), so unlike the reference's one-thread-
-              per-output convolution loops this formulation never forms
-              windows at all: decimation becomes an even/odd parity split
-              (contiguous slices), and the inverse's zero-stuffed polyphase
-              becomes per-parity half-filters recombined by interleaving.
-* ``xla``   — periodic padding + ``lax.conv_general_dilated`` (kept as a
-              correctness cross-check and for platforms where the conv
-              lowering is good).
+* ``fma``   — polyphase decomposition into contiguous slices + tap-by-tap
+              FMA.  A wavelet filter pass is a short FIR over a huge
+              array; this formulation never forms windows: decimation
+              becomes an even/odd parity split (contiguous slices), and
+              the inverse's zero-stuffed polyphase becomes per-parity
+              half-filters recombined by interleaving.
+* ``xla``   — periodic padding + ``lax.conv_general_dilated`` (a C=1
+              grouped convolution that XLA hands to its conv library).
 * ``gather`` — take()-based windows + tensordot; shape-agnostic oracle used
-              for cross-checking and as a CPU fallback.
+              for cross-checking.
+
+Which of ``fma`` and ``xla`` runs when no backend is named is decided per
+platform in one place, :func:`default_formulation`.
 
 All produce bit-identical index semantics; tests assert their equality.
 """
@@ -56,31 +54,56 @@ import numpy as np
 from jax import lax
 
 _BACKENDS = ("fma", "xla", "gather")
-# None = auto: "fma" on TPU (the conv unit is ~1000x off speed-of-light
-# for C=1 filter passes), "xla" elsewhere (CPU conv lowers well and the
-# unrolled fma graphs compile slowly there).  Override with the
-# PDWT_TPU_BACKEND env var or set_default_backend().
+
+# Formulation of the filter passes when no backend is named, per JAX
+# platform.  cpu: XLA's CPU conv lowers well and the unrolled fma graphs
+# compile slowly there.  gpu: fma, 2.3-5.4x faster than xla end to end
+# on an H100 (chip_smoke.py --ab; the timings are in CHANGES.md).
+_PLATFORM_DEFAULT = {"cpu": "xla", "gpu": "fma"}
+
+# An explicit override: the PDWT_TPU_BACKEND env var or
+# set_default_backend().  Validated where it is used.
 _default_backend: Optional[str] = (
     __import__("os").environ.get("PDWT_TPU_BACKEND") or None
 )
 
 
+def _check_backend(name: str) -> str:
+    if name not in _BACKENDS:
+        raise ValueError(
+            f"unknown backend {name!r}; expected one of {_BACKENDS}")
+    return name
+
+
 def set_default_backend(name: Optional[str]) -> None:
     global _default_backend
-    if name is not None and name not in _BACKENDS + ("pallas",):
-        raise ValueError(
-            f"unknown backend {name!r}; expected one of "
-            f"{_BACKENDS + ('pallas',)}")
+    if name is not None:
+        _check_backend(name)
     _default_backend = name
 
 
+def default_formulation(platform: str) -> str:
+    """The formulation a platform runs when no backend is named."""
+    try:
+        return _PLATFORM_DEFAULT[platform]
+    except KeyError:
+        raise ValueError(
+            f"no default wavelet formulation for JAX platform {platform!r}; "
+            f"supported platforms: {sorted(_PLATFORM_DEFAULT)}") from None
+
+
 def get_default_backend() -> str:
-    """Default backend for the conv passes.  A "pallas" override applies
-    only to the top-level transforms (core/separable.py); here it maps to
-    the fma formulation the kernels themselves fall back to."""
-    if _default_backend is not None and _default_backend in _BACKENDS:
-        return _default_backend
-    return "fma" if jax.default_backend() == "tpu" else "xla"
+    """Backend for conv passes that name none: the override if set, else
+    :func:`default_formulation` of the running platform."""
+    if _default_backend is not None:
+        return _check_backend(_default_backend)
+    return default_formulation(jax.default_backend())
+
+
+def resolve_backend(backend: Optional[str]) -> str:
+    """Validate an explicit backend, or pick the default one."""
+    return get_default_backend() if backend is None else _check_backend(
+        backend)
 
 
 def fwd_center(hlen: int) -> int:
@@ -108,7 +131,8 @@ def _accum_dtype(dtype) -> jnp.dtype:
 
 def _precision(dtype):
     # Full-precision multiplies: a wavelet library must reconstruct to
-    # float32 roundoff, which the TPU's default bf16 matmul passes miss.
+    # float32 roundoff, which a default-precision (TF32 or bf16-pass)
+    # product misses.
     if dtype == jnp.float32:
         return lax.Precision.HIGHEST
     return None
@@ -190,7 +214,7 @@ def _conv_nchw(
 
 
 # ---------------------------------------------------------------------------
-# fma backend: polyphase slice-FMA (the TPU-native formulation)
+# fma backend: polyphase slice-FMA
 # ---------------------------------------------------------------------------
 
 def _fma_analysis(xp, taps, axis, *, decimate, dilation):
@@ -320,7 +344,7 @@ def analysis_pass(
     (e.g. dec_lo); the reversal for correlation happens here.
 
     ``pad_fn(x, axis, lo, hi)`` overrides the periodic padding — the
-    distributed engine substitutes an ICI ring halo exchange here so the
+    distributed engine substitutes a ring halo exchange here so the
     same pass runs on spatially sharded arrays (see pdwt_tpu.parallel).
 
     ``mode`` selects the boundary extension (core/modes.py).  The default
@@ -329,7 +353,7 @@ def analysis_pass(
     applies to the decimated DWT only and yields floor((N+hlen-1)/2)
     outputs per pywt's convolution semantics.
     """
-    backend = backend or get_default_backend()
+    backend = resolve_backend(backend)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
     assert all(len(f) == hlen for f in filters)
@@ -419,7 +443,7 @@ def synthesis_pass(
     shift s=1), full output length ``2M - hlen + 2``, sliced to
     ``out_len``.  Requires an even filter length, as pywt does.
     """
-    backend = backend or get_default_backend()
+    backend = resolve_backend(backend)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
     k = len(filters)

@@ -30,8 +30,8 @@ half-delay pair.  Periodic boundaries throughout (core/conv.py index
 semantics; the roll is exact under them).
 
 The per-tree level transforms ride the framework's own engines: the
-uniform-tree combos dispatch through core.separable (fused Pallas
-kernels on TPU); the mixed row/col-tree combos of the 2D transform run
+uniform-tree combos dispatch through core.separable; the mixed
+row/col-tree combos of the 2D transform run
 the per-axis conv passes.
 """
 from __future__ import annotations

@@ -1,8 +1,11 @@
-"""Haar fast path — no convolution, just 2x2 / pairwise butterflies.
+"""Haar butterflies — no convolution, just 2x2 / pairwise butterflies.
 
-Taken when hlen == 2 and not SWT (reference: src/wt.cu:248,255).  On TPU
-this lowers to pure strided-slice + elementwise VPU work that XLA fuses
-into a couple of kernels; there is no gather or convolution at all.
+The reference takes this path when hlen == 2 and not SWT (reference:
+src/wt.cu:248,255).  Here it is a functional entry point only: on an
+H100 the generic fma passes run a 5-level 8192^2 haar roundtrip as fast
+(1.637 vs 1.665 ms), so the ``Wavelets`` facade uses the generic passes
+for every wavelet.  It lowers to strided-slice + elementwise work with
+no gather or convolution.
 
 Scaling conventions follow the reference exactly:
 * 2D uses a single 0.5 factor applied to the 4-point butterflies

@@ -178,10 +178,9 @@ def _ext_block(x: jnp.ndarray, axis: int, pos: np.ndarray,
     left = bool(pos[0] < 0)
     dt = x.dtype
 
-    # Gather-free fast paths for single-cycle widths: on the TPU a
-    # jnp.take along an array axis lowers as a relayout-heavy gather
-    # (measured 3x on the 2048^2 db7 roundtrip) while the equivalent
-    # flip/slice/broadcast of the tiny edge strip is nearly free.
+    # Gather-free fast paths for single-cycle widths: a flip/slice/
+    # broadcast of the tiny edge strip instead of a jnp.take gather
+    # along an array axis.
     if mode == "constant" or (mode == "smooth" and n == 1):
         edge = lax.slice_in_dim(x, 0, 1, axis=axis) if left \
             else lax.slice_in_dim(x, n - 1, n, axis=axis)

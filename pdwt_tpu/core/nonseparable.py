@@ -87,11 +87,8 @@ def _rank_decomp(q: np.ndarray, rtol: float = 1e-12):
     One SVD of the stacked (4*hlen, hlen) matrix yields a COLUMN-filter
     basis ``b_k`` shared by all four quads and per-subband row filters
     ``a_k^(s)``; a genuinely 2D filter of rank r then costs r separable
-    pass-sets instead of an hlen^2-tap 2D convolution.  The XLA
-    ``conv_general_dilated`` lowering for (C=1, K=4) quads is ~1000x off
-    this chip's speed-of-light (CLAUDE.md), so even full-rank random
-    quads win by orders of magnitude; structured quads (quincunx,
-    directional) typically have rank 2-4.  Returns (A (4, r, hlen),
+    pass-sets instead of an hlen^2-tap 2D convolution; structured quads
+    (quincunx, directional) typically have rank 2-4.  Returns (A (4, r, hlen),
     B (r, hlen)).  Reference true-2D path: src/nonseparable.cu:114-170.
     """
     four, h, _ = q.shape
@@ -139,7 +136,7 @@ def dwt2d_ns(x: jnp.ndarray, quads, levels: int, *,
     if fac is not None:
         lo_r, hi_r, lo_c, hi_c = fac
         if np.allclose(lo_r, lo_c) and np.allclose(hi_r, hi_c):
-            # isotropic separable: the full fast path incl. pallas on TPU
+            # isotropic separable: the separable engine
             from ..filters import Wavelet
             from . import separable as sep
 
@@ -155,28 +152,11 @@ def dwt2d_ns(x: jnp.ndarray, quads, levels: int, *,
             ))
         return Coeffs2D(_from_nchw(a, batch, 2), tuple(details))
     A, Bc = _rank_decomp(q)
-    from .. import kernels
-    from .separable import _auto_backend, _bf16_outs, _f32, _mxu_mode
-
-    mode = _mxu_mode(x.dtype)
-    if _auto_backend(backend, pad_fn) != "pallas":
-        mode = None  # MXU kernels need the pallas backend (TPU or
-        # explicit override); honors PDWT_TPU_BACKEND like separable
-    norm_out = _bf16_outs(mode)
-    A_t, B_t = kernels.ns_tup3(A), kernels.ns_tup2(Bc)
     for _ in range(levels):
-        res = None
-        if mode is not None and pad_fn is None:
-            # rank-r banded-matmul kernel (the true-2D MXU fast path)
-            res = kernels.ns_fwd_level_2d_mxu_ad(a[:, 0], A_t, B_t, mode)
-        if res is None:
-            af = _f32(a) if mode is not None else a
-            z = _rank_fwd_level(af, A, Bc, pad_fn)
-            res = (z[:, 0], z[:, 1], z[:, 2], z[:, 3])
-        aa, h, v, d = norm_out(*res)
-        a = aa[:, None]
+        z = _rank_fwd_level(a, A, Bc, pad_fn)
+        a = z[:, 0:1]
         details.append(tuple(
-            _from_nchw(t[:, None], batch, 2) for t in (h, v, d)
+            _from_nchw(z[:, k:k + 1], batch, 2) for k in (1, 2, 3)
         ))
     return Coeffs2D(_from_nchw(a, batch, 2), tuple(details))
 
@@ -235,36 +215,10 @@ def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int], *,
         return _from_nchw(a, batch, 2)
     a, batch = _to_nchw(coeffs.approx, 2)
     A, Bc = _rank_decomp(q)
-    from .. import kernels
-    from .separable import _auto_backend, _f32, _mxu_mode
-
-    ddt = coeffs.details[-1][0].dtype if coeffs.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if _auto_backend(backend, pad_fn) != "pallas":
-        mode = None  # MXU kernels need the pallas backend (TPU or
-        # explicit override); honors PDWT_TPU_BACKEND like separable
-    if mode == "bf16":
-        a = _f32(a)
-    A_t, B_t = kernels.ns_tup3(A), kernels.ns_tup2(Bc)
     for i in range(levels - 1, -1, -1):
         h, v, d = (_to_nchw(c, 2)[0] for c in coeffs.details[i])
-        y = None
-        if mode is not None and pad_fn is None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y4 = kernels.ns_inv_level_2d_mxu_ad(
-                a[:, 0], h[:, 0], v[:, 0], d[:, 0], A_t, B_t, mode,
-                out_dt)
-            if y4 is not None:
-                y = y4[:, None, :rows[i], :cols[i]]
-        if y is None:
-            parts = ([_f32(t) for t in (a, h, v, d)]
-                     if mode is not None else [a, h, v, d])
-            z = jnp.concatenate(parts, axis=1)
-            y = _rank_inv_level(z, A, Bc, (rows[i], cols[i]), pad_fn)
-            if mode == "bf16" and i == 0:
-                y = y.astype(jnp.bfloat16)
-        a = y
+        z = jnp.concatenate([a, h, v, d], axis=1)
+        a = _rank_inv_level(z, A, Bc, (rows[i], cols[i]), pad_fn)
     return _from_nchw(a, batch, 2)
 
 
@@ -321,39 +275,19 @@ def swt2d_ns(x: jnp.ndarray, quads, levels: int, *,
     details: List[Tuple[jnp.ndarray, ...]] = []
     a = arr
     A, Bc = _rank_decomp(q)
-    from .. import kernels
-    from .separable import _auto_backend, _bf16_outs, _f32, _mxu_mode
-
-    mode = _mxu_mode(x.dtype)
-    if _auto_backend(backend, pad_fn) != "pallas":
-        mode = None  # MXU kernels need the pallas backend (TPU or
-        # explicit override); honors PDWT_TPU_BACKEND like separable
-    if mode == "mixed":
-        mode = None  # undecimated b3 measured slower than exact (1.4 vs
-        # 2.3 GPix/s on chip) — same policy as separable SWT
-    norm_out = _bf16_outs(mode)
-    A_t, B_t = kernels.ns_tup3(A), kernels.ns_tup2(Bc)
     for lvl in range(1, levels + 1):
         f = 1 << (lvl - 1)
-        res = None
-        if mode is not None and pad_fn is None:
-            res = kernels.ns_swt_fwd_level_2d_mxu_ad(
-                a[:, 0], A_t, B_t, lvl, mode)
-        if res is None:
-            af = _f32(a) if mode is not None else a
-            t = conv.analysis_pass(af, list(Bc), axis=-1, dilation=f,
-                                   decimate=False, pad_fn=pad_fn)
-            z = None
-            for k in range(Bc.shape[0]):
-                w4 = conv.analysis_pass(t[:, k:k + 1], list(A[:, k]),
-                                        axis=-2, dilation=f,
-                                        decimate=False, pad_fn=pad_fn)
-                z = w4 if z is None else z + w4
-            res = (z[:, 0], z[:, 1], z[:, 2], z[:, 3])
-        aa, h, v, d = norm_out(*res)
-        a = aa[:, None]
+        t = conv.analysis_pass(a, list(Bc), axis=-1, dilation=f,
+                               decimate=False, pad_fn=pad_fn)
+        z = None
+        for k in range(Bc.shape[0]):
+            w4 = conv.analysis_pass(t[:, k:k + 1], list(A[:, k]),
+                                    axis=-2, dilation=f,
+                                    decimate=False, pad_fn=pad_fn)
+            z = w4 if z is None else z + w4
+        a = z[:, 0:1]
         details.append(tuple(
-            _from_nchw(t_[:, None], batch, 2) for t_ in (h, v, d)
+            _from_nchw(z[:, k:k + 1], batch, 2) for k in (1, 2, 3)
         ))
     return Coeffs2D(_from_nchw(a, batch, 2), tuple(details))
 
@@ -387,46 +321,18 @@ def iswt2d_ns(coeffs: Coeffs2D, quads_inv, *, backend=None,
         return _from_nchw(a, batch, 2)
     a, batch = _to_nchw(coeffs.approx, 2)
     # 1/4 normalization (reference: src/nonseparable.cu:393-396) carried
-    # on the shared column basis (the MXU kernel bakes it into G).
+    # on the shared column basis.
     A, Bc = _rank_decomp(q)
     Bc4 = Bc * 0.25
-    from .. import kernels
-    from .separable import _auto_backend, _f32, _mxu_mode
-
-    ddt = coeffs.details[-1][0].dtype if coeffs.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if _auto_backend(backend, pad_fn) != "pallas":
-        mode = None  # MXU kernels need the pallas backend (TPU or
-        # explicit override); honors PDWT_TPU_BACKEND like separable
-    if mode == "mixed":
-        mode = None  # exact beats undecimated b3 (see swt2d_ns)
-    if mode == "bf16":
-        a = _f32(a)
-    A_t, B_t = kernels.ns_tup3(A), kernels.ns_tup2(Bc)
     for i in range(coeffs.levels - 1, -1, -1):
         f = 1 << i
         h, v, d = (_to_nchw(c, 2)[0] for c in coeffs.details[i])
-        y = None
-        if mode is not None and pad_fn is None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y4 = kernels.ns_swt_inv_level_2d_mxu_ad(
-                a[:, 0], h[:, 0], v[:, 0], d[:, 0], A_t, B_t, i + 1,
-                mode, out_dt)
-            if y4 is not None:
-                y = y4[:, None]
-        if y is None:
-            parts = ([_f32(t_) for t_ in (a, h, v, d)]
-                     if mode is not None else [a, h, v, d])
-            z = jnp.concatenate(parts, axis=1)
-            ts = [conv.synthesis_pass(z, list(A[:, k]), axis=-2,
-                                      dilation=f, decimated=False,
-                                      pad_fn=pad_fn)
-                  for k in range(A.shape[1])]
-            t = jnp.concatenate(ts, axis=1)
-            y = conv.synthesis_pass(t, list(Bc4), axis=-1, dilation=f,
-                                    decimated=False, pad_fn=pad_fn)
-            if mode == "bf16" and i == 0:
-                y = y.astype(jnp.bfloat16)
-        a = y
+        z = jnp.concatenate([a, h, v, d], axis=1)
+        ts = [conv.synthesis_pass(z, list(A[:, k]), axis=-2,
+                                  dilation=f, decimated=False,
+                                  pad_fn=pad_fn)
+              for k in range(A.shape[1])]
+        t = jnp.concatenate(ts, axis=1)
+        a = conv.synthesis_pass(t, list(Bc4), axis=-1, dilation=f,
+                                decimated=False, pad_fn=pad_fn)
     return _from_nchw(a, batch, 2)

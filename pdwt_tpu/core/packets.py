@@ -4,13 +4,12 @@ Beyond the reference (pierrepaleo/PDWT stops at the pyramid DWT/SWT —
 packets generalize it by also splitting the detail subbands, reference:
 src/separable.cu:91-209 computes only the approximation recursion).
 
-TPU-first formulation: the packet tree is NOT a tree of kernel calls.
+Formulation: the packet tree is NOT a tree of kernel calls.
 At depth ``j`` all ``4^j`` (2D) / ``2^j`` (1D) nodes are stacked on a
 leading axis and transformed by ONE batched single-level call — the
-node axis rides the fused Pallas level kernels' batch dimension, so a
-full-depth packet decomposition costs ``levels`` kernel dispatches
-total, identical per-pixel work to the pyramid DWT, and inherits every
-precision mode (bf16/mixed MXU) unchanged.
+node axis rides the level's batch dimension, so a full-depth packet
+decomposition costs ``levels`` batched level calls total, identical
+per-pixel work to the pyramid DWT.
 
 Node ordering is natural (Paley): child ``k`` of node ``i`` at depth
 ``j`` is node ``4*i + k`` at depth ``j+1``, with ``k`` in
@@ -95,8 +94,6 @@ def wp2d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
         a = c.approx
         h, v, d = c.details[0]
         n, r, cc = a.shape[-3:]
-        if a.dtype != h.dtype:  # bf16 MXU mode: f32 A-chain, bf16 details
-            a = a.astype(h.dtype)
         stk = jnp.stack([a, h, v, d], axis=-3)  # (..., n, 4, r, c)
         nodes.append(stk.reshape(batch + (4 * n, r, cc)))
     return Packets2D(tuple(nodes))

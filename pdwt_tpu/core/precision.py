@@ -1,44 +1,27 @@
-"""First-class precision/accuracy tiers for the TPU compute paths.
+"""Precision tiers of the transforms.
 
-The measured ladder (round-2..4 chip A/Bs, see CLAUDE.md and the kernel
-docstrings; 2048^2 db7 5-level roundtrip, max error on [0,255]
-worst-case noise):
+==============  ========  ===============================================
+tier            arrays    compute
+==============  ========  ===============================================
+``exact``       f32/f64   every conv and einsum at ``Precision.HIGHEST``
+                          (no TF32 on GPUs): float32 roundoff
+``bf16-fast``   bf16      each pass widens its bf16 input to float32,
+                          accumulates in float32 and rounds its output
+                          to bf16: every coefficient (the approximation
+                          chain included) and the reconstruction are bf16
+==============  ========  ===============================================
 
-==================  ========  ==========  =================================
-tier                 arrays    GPix/s      max err (headline roundtrip)
-==================  ========  ==========  =================================
-``exact``            f32/f64   5.1         ~1e-5 (f32 roundoff; VPU FIR)
-``mixed``            f32       7.2         ~2e-2 (bf16x3 compute, f32 io)
-``bf16-fast``        bf16     13.9         ~4    (single bf16 matmul)
-``bf16-balanced``    bf16      9.2         ~2    (hi/lo split operands)
-``bf16-accurate``    bf16      7.7         ~1    (bf16x3; bf16 storage floor)
-==================  ========  ==========  =================================
-
-A tier is selected per ``Wavelets`` instance (the facade bakes it into
-``WaveletSpec`` so two instances with different tiers coexist in one
-process and retrace independently), per call via the ``precision=``
-kwarg on the core transforms, or explicitly with
-:func:`precision_scope`.  The ``PDWT_TPU_PRECISION`` /
-``PDWT_TPU_BF16_ACCURACY`` env vars remain as process-global *defaults*
-consulted only when no tier is active; note that flipping an env var
-mid-process does NOT invalidate already-traced jit programs — that
-staleness hazard is exactly why the explicit API exists.
-
-The tier is read at TRACE time (the scope must be live while the
-transform traces, which both the facade and the ``precision=`` kwarg
-guarantee); a compiled executable keeps the tier it was traced with.
+The tier follows from the array dtype; ``precision=`` (per ``Wavelets``
+instance or per call on the core transforms) states which one the
+caller expects, and a tier that does not match the arrays raises
+instead of computing something else.
 """
 from __future__ import annotations
 
-import contextlib
-import os
-from contextvars import ContextVar
-from typing import Iterator, Optional
+import functools
+from typing import Optional
 
-TIERS = ("exact", "mixed", "bf16-fast", "bf16-balanced", "bf16-accurate")
-
-_active: ContextVar[Optional[str]] = ContextVar("pdwt_tpu_precision",
-                                                default=None)
+TIERS = ("exact", "bf16-fast")
 
 
 def check_tier(tier: str) -> str:
@@ -48,114 +31,51 @@ def check_tier(tier: str) -> str:
     return tier
 
 
-def current() -> Optional[str]:
-    """The active tier, or None when env-var defaults apply."""
-    return _active.get()
-
-
-@contextlib.contextmanager
-def precision_scope(tier: Optional[str]) -> Iterator[None]:
-    """Activate a precision tier for transforms traced inside the scope
-    (None = no-op, keep whatever is active)."""
-    if tier is None:
-        yield
-        return
-    token = _active.set(check_tier(tier))
-    try:
-        yield
-    finally:
-        _active.reset(token)
-
-
-def mixed_requested() -> bool:
-    """Should f32 arrays run the bf16x3 MXU kernels?  Active tier wins
-    (``"mixed"`` → yes, any other tier → no); otherwise the
-    PDWT_TPU_PRECISION env default."""
-    tier = _active.get()
-    if tier is not None:
-        return tier == "mixed"
-    return os.environ.get("PDWT_TPU_PRECISION", "").lower() in (
-        "mixed", "bf16x3")
-
-
-def bf16_accuracy() -> str:
-    """The bf16-mode accuracy rung ("fast"/"balanced"/"accurate"):
-    active ``bf16-*`` tier wins, else the PDWT_TPU_BF16_ACCURACY env
-    default."""
-    tier = _active.get()
-    if tier is not None and tier.startswith("bf16-"):
-        return tier[len("bf16-"):]
-    env = os.environ.get("PDWT_TPU_BF16_ACCURACY", "fast")
-    if env not in ("fast", "balanced", "accurate"):
-        raise ValueError(
-            f"PDWT_TPU_BF16_ACCURACY={env!r}: pick from "
-            "['accurate', 'balanced', 'fast']")
-    return env
-
-
 def takes_precision(fn):
-    """Add a ``precision=`` keyword to a transform entry point: the tier
-    is activated (:func:`precision_scope`) around the call so every MXU
-    mode / bf16 scheme decision inside traces under it.  ``None`` keeps
-    the ambient tier (an enclosing scope or the env defaults)."""
-    import functools
+    """Add a ``precision=`` keyword to a transform entry point, checked
+    against the input dtypes: ``bf16-fast`` needs bf16 arrays among the
+    inputs, ``exact`` needs none.  ``None`` skips the check."""
 
     @functools.wraps(fn)
     def wrapper(*args, precision: Optional[str] = None, **kwargs):
         if precision is None:
             return fn(*args, **kwargs)
         check_tier(precision)
-        # a tier/dtype mismatch would otherwise silently no-op (the MXU
-        # mode is keyed on the array dtype): bf16-* rungs need bf16
-        # arrays somewhere in the inputs, exact/mixed need none (the
-        # bf16 contract carries an f32 approximation chain, so inverse
-        # pytrees legitimately mix dtypes — presence is the invariant)
         import jax
-
         import jax.numpy as jnp
 
         has_bf16 = any(
             getattr(leaf, "dtype", None) == jnp.bfloat16
             for leaf in jax.tree_util.tree_leaves(args))
-        if precision.startswith("bf16-") != has_bf16:
+        if (precision == "bf16-fast") != has_bf16:
             raise ValueError(
                 f"precision {precision!r} does not match the input "
                 f"dtypes ({'some' if has_bf16 else 'no'} bfloat16 "
-                "arrays): bf16-* tiers need bf16 arrays, exact/mixed "
-                "need float arrays")
-        with precision_scope(precision):
-            return fn(*args, **kwargs)
+                "arrays): 'bf16-fast' needs bf16 arrays, 'exact' needs "
+                "float arrays")
+        return fn(*args, **kwargs)
 
     doc = wrapper.__doc__ or ""
     wrapper.__doc__ = doc + (
-        "\n\n    ``precision=`` selects a compute tier for this call "
-        "(core/precision.py): 'exact', 'mixed', or 'bf16-fast'/"
-        "'bf16-balanced'/'bf16-accurate'.\n    ")
+        "\n\n    ``precision=`` states the compute tier of this call "
+        "(core/precision.py): 'exact' or 'bf16-fast'.\n    ")
     return wrapper
 
 
 def tier_for(dtype_name: str, tier: Optional[str]) -> str:
     """Validate/resolve a tier against an array dtype (the facade's
-    constructor contract): bf16 arrays take the bf16-* rungs, f32 takes
-    exact/mixed, f64 is exact-only."""
+    constructor contract): bf16 arrays take ``bf16-fast``, f32/f64 take
+    ``exact``."""
     if tier is not None:
         check_tier(tier)
     if dtype_name == "bfloat16":
-        if tier is None:
-            return "bf16-fast"
-        if not tier.startswith("bf16-"):
-            # 'exact'/'mixed' cannot be honored on bf16 storage (the MXU
-            # bf16 kernels always run) — reject rather than silently
-            # reporting a tier the compute does not deliver
+        if tier not in (None, "bf16-fast"):
             raise ValueError(
                 f"precision {tier!r} needs float32 arrays; bf16 arrays "
-                "take 'bf16-fast'/'bf16-balanced'/'bf16-accurate' "
-                "(cast to float32 for the exact/mixed tiers)")
-        return tier
-    if tier is not None and tier.startswith("bf16-"):
+                "take 'bf16-fast' (cast to float32 for 'exact')")
+        return "bf16-fast"
+    if tier == "bf16-fast":
         raise ValueError(
             f"precision {tier!r} needs bfloat16 arrays (pass "
             "dtype=jnp.bfloat16 or leave dtype unset)")
-    if dtype_name == "float64" and tier == "mixed":
-        raise ValueError("precision 'mixed' applies to float32 arrays")
-    return tier or "exact"
+    return "exact"

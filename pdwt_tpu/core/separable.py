@@ -23,14 +23,13 @@ horizontally-lowpassed temp for A/H).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
 
 from ..filters import Wavelet
 from . import conv
-from .shapes import div2, level_sizes
 from .precision import takes_precision
 
 
@@ -66,7 +65,7 @@ def _to_nchw(x: jnp.ndarray, ndim_spatial: int):
         batch = x.shape[:-1]
         n = x.shape[-1]
         # batched-1D: fold the batch into H so one conv handles all rows,
-        # the TPU analogue of the reference's rows-as-batch kernels
+        # the analogue of the reference's rows-as-batch kernels
         # (reference: src/separable.cu:213-236).
         return x.reshape((1, 1, int(np.prod(batch, dtype=np.int64)), n)), batch
 
@@ -77,568 +76,20 @@ def _from_nchw(x: jnp.ndarray, batch, ndim_spatial: int):
     return x.reshape(batch + x.shape[-1:])
 
 
+
 # ---------------------------------------------------------------------------
 # 2D decimated
 # ---------------------------------------------------------------------------
 
-def _ftup(f):
-    return tuple(float(v) for v in f)
-
-
-def _mxu_mode(dtype) -> Optional[str]:
-    """MXU kernel mode for the pallas 2D path: "bf16" for bf16 arrays
-    (half-traffic serving; one bf16 matmul per pass, f32 accumulation),
-    "mixed" for f32 arrays under the "mixed" precision tier (bf16x3
-    compute, ~1e-5 relative coefficient error, ~2.5x faster than exact),
-    or None for the exact-f32 VPU kernels.  The tier comes from
-    core/precision.py: an active precision_scope / facade tier wins,
-    else the PDWT_TPU_PRECISION env default."""
-    from . import precision
-
-    if dtype == jnp.bfloat16:
-        return "bf16"
-    if dtype == jnp.float32 and precision.mixed_requested():
-        return "mixed"
-    return None
-
-
-def _f32(t):
-    return t.astype(jnp.float32) if t.dtype != jnp.float32 else t
-
-
-def _bf16_outs(mode):
-    """bf16-mode dtype contract for a level's outputs: f32 approximation
-    chain, bf16 details (see _dwt2d_pallas docstring); identity
-    otherwise.  Shared by the single-chip and sharded engines."""
-    def norm(a, h, v, d):
-        if mode == "bf16":
-            return (a.astype(jnp.float32),) + tuple(
-                t.astype(jnp.bfloat16) for t in (h, v, d))
-        return a, h, v, d
-    return norm
-
-
 def _all_periodization(mode) -> bool:
     """True when ``mode`` (a string or per-axis tuple) is entirely the
-    reference's periodization scheme (the Pallas fast-path condition)."""
+    reference's periodization scheme."""
     if isinstance(mode, str):
         return mode == "periodization"
     return all(m == "periodization" for m in mode)
 
 
-def _auto_backend(backend: Optional[str], pad_fn,
-                  mode="periodization") -> Optional[str]:
-    """Resolve ``backend=None``: the PDWT_TPU_BACKEND env var /
-    conv.set_default_backend override wins; otherwise the fused Pallas
-    level kernels on TPU.  Distributed calls (pad_fn given) stay on the
-    conv backends unless explicitly asked for pallas — the sharded
-    engine has its own pallas composition (parallel/sharded.py).
-
-    Boundary modes other than ``"periodization"`` ride the conv
-    backends: the fused Pallas kernels bake periodic phase arithmetic
-    into their tile slicing, so an explicit ``backend="pallas"`` with a
-    non-periodization mode is an error and the auto/override "pallas"
-    choices fall through to the fma formulation."""
-    import jax
-
-    if not _all_periodization(mode):
-        if backend == "pallas":
-            raise ValueError(
-                "backend='pallas' supports mode='periodization' only; "
-                "other boundary modes run on the conv backends")
-        if backend is not None:
-            return backend
-        override = conv._default_backend
-        return None if override == "pallas" else override
-    if backend is not None:
-        return backend
-    override = conv._default_backend
-    if override is not None:
-        # "pallas" with a pad_fn cannot be honored here; fall through to
-        # the conv backends (get_default_backend maps it to "fma").
-        if override == "pallas" and pad_fn is not None:
-            return None
-        return override
-    if pad_fn is None and jax.default_backend() == "tpu":
-        return "pallas"
-    return None
-
-
-
-def _dwt2d_pallas(x: jnp.ndarray, wav: Wavelet, levels: int) -> Coeffs2D:
-    """Per-level fused Pallas kernels; falls back to the (bit-identical)
-    fma backend for geometries the kernels don't support.
-
-    In bf16 mode the details are stored bf16 but the approximation chain
-    is carried (and returned) in f32: its magnitude doubles per level and
-    its rounding error dominated the bf16 reconstruction error otherwise
-    (round-2 measurement: ±16 on [0,255] with an all-bf16 chain)."""
-    from .. import kernels
-
-    if x.ndim < 2:
-        raise ValueError(f"expected at least 2D input, got {x.shape}")
-    batch = x.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = x.reshape((b,) + x.shape[-2:])
-    dec = (wav.dec_lo, wav.dec_hi)
-    lo_t, hi_t = _ftup(wav.dec_lo), _ftup(wav.dec_hi)
-    mode = _mxu_mode(x.dtype)
-
-    norm_out = _bf16_outs(mode)
-
-    details = []
-    lvl = 0
-    while lvl < levels:
-        # odd sizes: virtual extension (reference: src/separable.cu:116-121)
-        # applied up front so the fused kernel sees even sizes.
-        ae = conv.odd_extend(conv.odd_extend(a, -1), -2)
-        remaining = levels - lvl
-        res = None
-        if mode is not None:
-            res = kernels.fwd_level_2d_mxu_ad(ae, lo_t, hi_t, mode)
-        if res is None and ae.dtype == jnp.float32:
-            # once the approximation fits in VMEM, fuse ALL remaining
-            # levels in one kernel (no pads / dispatch / fma tail).
-            # In bf16 mode the f32 A-chain makes this valid for the
-            # small deep levels the MXU tiles don't reach.
-            tail = kernels.fwd_tail_2d_ad(ae, lo_t, hi_t, remaining)
-            if tail is not None:
-                a, dets = tail
-                for (h, v, d) in dets:
-                    _, h, v, d = norm_out(a, h, v, d)
-                    details.append(tuple(t.reshape(batch + t.shape[1:])
-                                         for t in (h, v, d)))
-                lvl = levels
-                break
-            res = kernels.fwd_level_2d_ad(ae, lo_t, hi_t)
-        if res is None:
-            af = a.astype(jnp.float32) if a.dtype != jnp.float32 else a
-            z = conv.analysis_pass(af[:, None], dec, axis=-1, backend="fma")
-            z = conv.analysis_pass(z, dec, axis=-2, backend="fma")
-            if mode is None:
-                z = z.astype(a.dtype)
-            a, h, v, d = z[:, 0], z[:, 1], z[:, 2], z[:, 3]
-        else:
-            a, h, v, d = res
-        a, h, v, d = norm_out(a, h, v, d)
-        details.append(tuple(t.reshape(batch + t.shape[1:])
-                             for t in (h, v, d)))
-        lvl += 1
-    return Coeffs2D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _idwt2d_pallas(coeffs: Coeffs2D, wav: Wavelet,
-                   shape: Tuple[int, int]) -> jnp.ndarray:
-    from .. import kernels
-
-    levels = coeffs.levels
-    rows = level_sizes(shape[0], levels)
-    cols = level_sizes(shape[1], levels)
-    rec = (wav.rec_lo, wav.rec_hi)
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    batch = coeffs.approx.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(coeffs.approx)
-    # Mode from the DETAIL dtype: in bf16 mode the forward returns an
-    # f32 approximation chain with bf16 details.
-    ddt = coeffs.details[-1][0].dtype if coeffs.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "bf16" and a.dtype != jnp.float32:
-        a = a.astype(jnp.float32)
-    f32 = _f32
-
-    # Fuse the deepest k levels into one VMEM-resident kernel when their
-    # sizes halve exactly (no odd-size slicing among them).  The exact
-    # f32 tail kernel is valid under the MXU modes too: "mixed" arrays
-    # are f32, and in "bf16" mode the deep details are cast up (they are
-    # the smallest subbands).
-    mr, mc = a.shape[-2], a.shape[-1]
-    k = 0
-    hlen = len(wav.rec_lo)
-    while k < levels:
-        i = levels - 1 - k  # level produced by fusing one more
-        if rows[i] != mr << (k + 1) or cols[i] != mc << (k + 1):
-            break
-        if not kernels.tail_supported((mr << (k + 1), mc << (k + 1)),
-                                      hlen, k + 1):
-            break
-        if mode is not None and kernels.mxu_tiles(rows[i] // 2,
-                                                  cols[i] // 2, hlen):
-            break  # the MXU kernel covers this level; stop fusing here
-        k += 1
-    start = levels - 1
-    if k >= 1:
-        flat_details = []
-        for i in range(levels - 1, levels - 1 - k, -1):  # deepest first
-            flat_details.extend(f32(flat(t)) for t in coeffs.details[i])
-        y = kernels.inv_tail_2d_ad(f32(a), tuple(flat_details), lo_t, hi_t,
-                                   k)
-        if y is not None:
-            a = y
-            start = levels - 1 - k
-    for i in range(start, -1, -1):
-        h, v, d = (flat(t) for t in coeffs.details[i])
-        y = None
-        if mode is not None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y = kernels.inv_level_2d_mxu_ad(a, h, v, d, lo_t, hi_t, mode,
-                                            out_dt)
-        if y is None and mode is not None:
-            y = kernels.inv_level_2d_ad(f32(a), f32(h), f32(v), f32(d),
-                                        lo_t, hi_t)
-            if y is not None and mode == "bf16" and i == 0:
-                y = y.astype(jnp.bfloat16)
-        elif y is None and a.dtype == jnp.float32:
-            y = kernels.inv_level_2d_ad(a, h, v, d, lo_t, hi_t)
-        if y is None:
-            z = jnp.concatenate(
-                [f32(t)[:, None] for t in (a, h, v, d)], axis=1)
-            t2 = conv.synthesis_pass(z, rec, axis=-2, out_len=rows[i],
-                                     backend="fma")
-            y = conv.synthesis_pass(t2, rec, axis=-1, out_len=cols[i],
-                                    backend="fma")[:, 0]
-            if mode == "bf16":
-                y = y.astype(jnp.bfloat16 if i == 0 else jnp.float32)
-            else:
-                y = y.astype(a.dtype)
-        else:
-            y = y[:, :rows[i], :cols[i]]
-        a = y
-    if mode == "bf16" and a.dtype != jnp.bfloat16:
-        # the tail fusion can cover EVERY level (start == -1, per-level
-        # loop never runs) — enforce the bf16 output contract here too
-        a = a.astype(jnp.bfloat16)
-    return a.reshape(batch + a.shape[1:])
-
-
 @takes_precision
-# ---------------------------------------------------------------------------
-# Non-periodization modes on the fused Pallas kernels (round 5).
-#
-# The padded kernel entry points (built for the distributed halo path)
-# read ONLY the array they are given — no wrap arithmetic — so the pywt
-# boundary extension can ride as the pad itself.  Phase algebra for the
-# forward (even hlen F, c = F/2 - 1, so the pywt analysis left width
-# F - 2 = 2c): the kernel computes out[n] = Σ frev[j]·x'[2n - c + j]
-# over the signal x' it is given; presenting x' = extend(x, c, ..., mode)
-# (the extension treated AS signal, sized 2·L'' with L'' the tile-
-# friendly round-up of the pywt L) makes that exactly the pywt window
-# x_ext[2m - 2c + j] at n = m — all L outputs per axis come out
-# directly, garbage tails beyond L are prefix-sliced (measured free).
-# The inverse needs NO boundary extension (zero pads) and the periodic
-# kernel's synthesis shift s = inv_shift(F) relates to the pywt shift 1
-# by a pure output offset: out_pywt[g] = out_kernel[g + s - 1].
-#
-# Chip A/B (tools/mode_pallas_probe*.py, db7 symmetric L1 2048²):
-# 1.77x over the fma formulation incl. slices (0.69 vs 1.22 ms); at
-# tile-divisible sizes 7.2x (0.40 ms, no garbage work).  The tile
-# round-up must be 64/128-friendly: a bare 8-multiple can leave the
-# picker only TR=8 (1032 = 8·129) and measured 3.8 ms.
-#
-# Both directions are linear, so the custom VJPs compute the exact
-# adjoint via jax.linear_transpose over the (bit-equivalent) fma
-# formulation — the backward pass costs fma speed, the forward runs
-# the kernels.
-# ---------------------------------------------------------------------------
-
-def _ceil_to(n: int, q: int) -> int:
-    return -(-n // q) * q
-
-
-def _mode_fma_level_fwd(af, wav, mode_r, mode_c):
-    dec = (wav.dec_lo, wav.dec_hi)
-    z = conv.analysis_pass(af[:, None], dec, axis=-1, backend="fma",
-                           mode=mode_c)
-    z = conv.analysis_pass(z, dec, axis=-2, backend="fma", mode=mode_r)
-    return z[:, 0], z[:, 1], z[:, 2], z[:, 3]
-
-
-def _mode_fwd_level_pallas_raw(af, wav, mode_r, mode_c):
-    """One f32 mode-analysis level on (B, r, c) via the padded Pallas
-    kernel; None when the geometry is unsupported (caller falls back to
-    the fma formulation)."""
-    from .. import kernels
-    from .modes import dec_len, extend
-
-    hlen = wav.hlen
-    if hlen % 2 or af.dtype != jnp.float32:
-        return None
-    r, c = af.shape[-2:]
-    if min(r, c) < 2:
-        return None
-    cc = conv.fwd_center(hlen)
-    lr, lc = dec_len(r, hlen, mode_r), dec_len(c, hlen, mode_c)
-    lr2, lc2 = _ceil_to(lr, 64), _ceil_to(lc, 128)
-    geo = kernels.fwd_geometry(2 * lr2, 2 * lc2, hlen)
-    if geo is None:
-        return None
-    lo_r, lo_c, hi_r, hi_c = geo
-    tl = tuple(float(v) for v in wav.dec_lo)
-    th = tuple(float(v) for v in wav.dec_hi)
-    xq = extend(af, -1, cc + lo_c, (2 * lc2 - c - cc) + hi_c, mode_c)
-    xq = extend(xq, -2, cc + lo_r, (2 * lr2 - r - cc) + hi_r, mode_r)
-    bands = kernels.fwd_level_2d_padded(xq, tl, th, (lr2, lc2))
-    return tuple(b[:, :lr, :lc] for b in bands)
-
-
-def _mode_inv_level_pallas_raw(a, h, v, d, wav, out_r, out_c):
-    """One f32 mode-synthesis level; subbands (B, mr, mc) ->
-    (B, out_r, out_c) via the padded Pallas kernel with ZERO pads (the
-    pywt inverse has no boundary extension) and the s-1 output offset;
-    None when unsupported."""
-    from .. import kernels
-    from .modes import zero_pad
-
-    hlen = wav.hlen
-    if hlen % 2 or a.dtype != jnp.float32:
-        return None
-    s = conv.inv_shift(hlen)
-    mr, mc = a.shape[-2:]
-    mr2, mc2 = _ceil_to(mr, 64), _ceil_to(mc, 128)
-    if s - 1 + out_r > 2 * mr2 or s - 1 + out_c > 2 * mc2:
-        return None
-    geo = kernels.inv_geometry(mr2, mc2, hlen)
-    if geo is None:
-        return None
-    lo_r, lo_c, hi_r, hi_c = geo
-    rl = tuple(float(v) for v in wav.rec_lo)
-    rh = tuple(float(v) for v in wav.rec_hi)
-
-    def zp(t):
-        t = zero_pad(t, -1, lo_c, (mc2 - mc) + hi_c)
-        return zero_pad(t, -2, lo_r, (mr2 - mr) + hi_r)
-
-    y = kernels.inv_level_2d_padded(zp(a), zp(h), zp(v), zp(d), rl, rh,
-                                    (mr2, mc2))
-    return y[:, s - 1:s - 1 + out_r, s - 1:s - 1 + out_c]
-
-
-import functools as _functools
-
-import jax as _jax
-
-
-@_functools.partial(_jax.custom_vjp, nondiff_argnums=(1, 2, 3))
-def _mode_fwd_level_pallas(af, wav, mode_r, mode_c):
-    res = _mode_fwd_level_pallas_raw(af, wav, mode_r, mode_c)
-    if res is None:
-        res = _mode_fma_level_fwd(af, wav, mode_r, mode_c)
-    return res
-
-
-def _mode_fwd_vjp_fwd(af, wav, mode_r, mode_c):
-    # residual: the input array itself (custom_vjp residual leaves must
-    # be JAX types; only its aval is used — the analysis is linear)
-    return _mode_fwd_level_pallas(af, wav, mode_r, mode_c), af
-
-
-def _mode_fwd_vjp_bwd(wav, mode_r, mode_c, af, ct):
-    aval = _jax.ShapeDtypeStruct(af.shape, af.dtype)
-    # exact adjoint of the LINEAR analysis via the fma formulation
-    (grad,) = _jax.linear_transpose(
-        lambda x: _mode_fma_level_fwd(x, wav, mode_r, mode_c), aval)(ct)
-    return (grad,)
-
-
-_mode_fwd_level_pallas.defvjp(_mode_fwd_vjp_fwd, _mode_fwd_vjp_bwd)
-
-
-def _mode_fma_level_inv(a, h, v, d, wav, out_r, out_c, mode_r, mode_c):
-    rec = (wav.rec_lo, wav.rec_hi)
-    z = jnp.stack([a, h, v, d], axis=1)
-    t = conv.synthesis_pass(z, rec, axis=-2, out_len=out_r,
-                            backend="fma", mode=mode_r)
-    return conv.synthesis_pass(t, rec, axis=-1, out_len=out_c,
-                               backend="fma", mode=mode_c)[:, 0]
-
-
-@_functools.partial(_jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8))
-def _mode_inv_level_pallas(a, h, v, d, wav, out_r, out_c, mode_r, mode_c):
-    y = _mode_inv_level_pallas_raw(a, h, v, d, wav, out_r, out_c)
-    if y is None:
-        y = _mode_fma_level_inv(a, h, v, d, wav, out_r, out_c,
-                                mode_r, mode_c)
-    return y
-
-
-def _mode_inv_vjp_fwd(a, h, v, d, wav, out_r, out_c, mode_r, mode_c):
-    out = _mode_inv_level_pallas(a, h, v, d, wav, out_r, out_c,
-                                 mode_r, mode_c)
-    return out, a
-
-
-def _mode_inv_vjp_bwd(wav, out_r, out_c, mode_r, mode_c, a, ct):
-    avals = tuple(_jax.ShapeDtypeStruct(a.shape, a.dtype)
-                  for _ in range(4))
-    return _jax.linear_transpose(
-        lambda aa, h, v, d: _mode_fma_level_inv(aa, h, v, d, wav, out_r,
-                                                out_c, mode_r, mode_c),
-        *avals)(ct)
-
-
-_mode_inv_level_pallas.defvjp(_mode_inv_vjp_fwd, _mode_inv_vjp_bwd)
-
-
-def _mode_fma_level_fwd_1d(af, wav, mode):
-    dec = (wav.dec_lo, wav.dec_hi)
-    z = conv.analysis_pass(af[:, None, None], dec, axis=-1, backend="fma",
-                           mode=mode)
-    return z[:, 0, 0], z[:, 1, 0]
-
-
-def _mode_fma_level_inv_1d(lo, hi, wav, out_len, mode):
-    rec = (wav.rec_lo, wav.rec_hi)
-    z = jnp.stack([lo, hi], axis=1)[:, :, None, :]
-    return conv.synthesis_pass(z, rec, axis=-1, out_len=out_len,
-                               backend="fma", mode=mode)[:, 0, 0]
-
-
-def _mode_fwd_level_pallas_1d_raw(af, wav, mode):
-    """One f32 batched-1D mode-analysis level on (B, n) via the padded
-    Pallas kernel (extension-as-pad, lane axis; same phase algebra as
-    the 2D block above); None when unsupported."""
-    from .. import kernels
-    from .modes import dec_len, extend
-
-    hlen = wav.hlen
-    if hlen % 2 or af.dtype != jnp.float32:
-        return None
-    b, n = af.shape
-    if n < 2:
-        return None
-    cc = conv.fwd_center(hlen)
-    ln = dec_len(n, hlen, mode)
-    ln2 = _ceil_to(ln, 128)
-    geo = kernels.fwd1d_geometry(b, 2 * ln2, hlen)
-    if geo is None:
-        return None
-    lo_c, hi_c = geo
-    tl = tuple(float(v) for v in wav.dec_lo)
-    th = tuple(float(v) for v in wav.dec_hi)
-    xq = extend(af, -1, cc + lo_c, (2 * ln2 - n - cc) + hi_c, mode)
-    lo, hi = kernels.fwd_level_1d_padded(xq, tl, th, ln2)
-    return lo[:, :ln], hi[:, :ln]
-
-
-def _mode_inv_level_pallas_1d_raw(lo, hi, wav, out_len):
-    from .. import kernels
-    from .modes import zero_pad
-
-    hlen = wav.hlen
-    if hlen % 2 or lo.dtype != jnp.float32:
-        return None
-    s = conv.inv_shift(hlen)
-    b, m = lo.shape
-    m2 = _ceil_to(m, 128)
-    if s - 1 + out_len > 2 * m2:
-        return None
-    geo = kernels.inv1d_geometry(b, m2, hlen)
-    if geo is None:
-        return None
-    lo_c, hi_c = geo
-    rl = tuple(float(v) for v in wav.rec_lo)
-    rh = tuple(float(v) for v in wav.rec_hi)
-    zp = lambda t: zero_pad(t, -1, lo_c, (m2 - m) + hi_c)
-    y = kernels.inv_level_1d_padded(zp(lo), zp(hi), rl, rh, m2)
-    return y[:, s - 1:s - 1 + out_len]
-
-
-@_functools.partial(_jax.custom_vjp, nondiff_argnums=(1, 2))
-def _mode_fwd_level_pallas_1d(af, wav, mode):
-    res = _mode_fwd_level_pallas_1d_raw(af, wav, mode)
-    if res is None:
-        res = _mode_fma_level_fwd_1d(af, wav, mode)
-    return res
-
-
-def _mode_fwd1d_vjp_fwd(af, wav, mode):
-    return _mode_fwd_level_pallas_1d(af, wav, mode), af
-
-
-def _mode_fwd1d_vjp_bwd(wav, mode, af, ct):
-    aval = _jax.ShapeDtypeStruct(af.shape, af.dtype)
-    (grad,) = _jax.linear_transpose(
-        lambda x: _mode_fma_level_fwd_1d(x, wav, mode), aval)(ct)
-    return (grad,)
-
-
-_mode_fwd_level_pallas_1d.defvjp(_mode_fwd1d_vjp_fwd, _mode_fwd1d_vjp_bwd)
-
-
-@_functools.partial(_jax.custom_vjp, nondiff_argnums=(2, 3, 4))
-def _mode_inv_level_pallas_1d(lo, hi, wav, out_len, mode):
-    y = _mode_inv_level_pallas_1d_raw(lo, hi, wav, out_len)
-    if y is None:
-        y = _mode_fma_level_inv_1d(lo, hi, wav, out_len, mode)
-    return y
-
-
-def _mode_inv1d_vjp_fwd(lo, hi, wav, out_len, mode):
-    return _mode_inv_level_pallas_1d(lo, hi, wav, out_len, mode), lo
-
-
-def _mode_inv1d_vjp_bwd(wav, out_len, mode, lo, ct):
-    avals = tuple(_jax.ShapeDtypeStruct(lo.shape, lo.dtype)
-                  for _ in range(2))
-    return _jax.linear_transpose(
-        lambda l, h: _mode_fma_level_inv_1d(l, h, wav, out_len, mode),
-        *avals)(ct)
-
-
-_mode_inv_level_pallas_1d.defvjp(_mode_inv1d_vjp_fwd, _mode_inv1d_vjp_bwd)
-
-
-def _use_mode_pallas(backend, pad_fn, dtype) -> bool:
-    """Route the non-periodization mode path onto the fused kernels:
-    auto backend (or an explicit/env 'pallas' preference), no sharding
-    pad_fn, f32 arrays, real TPU."""
-    import os
-
-    import jax
-
-    if pad_fn is not None or dtype != jnp.float32:
-        return False
-    if os.environ.get("PDWT_TPU_MODE_PALLAS") == "0":
-        return False
-    pref = backend if backend is not None else conv._default_backend
-    if pref not in (None, "pallas"):
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _dwt2d_pallas_mode(x, wav, levels, mode_r, mode_c) -> Coeffs2D:
-    """Multi-level mode-analysis on the fused kernels (per-level fma
-    fallback inside _mode_fwd_level_pallas)."""
-    batch = x.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = x.reshape((b,) + x.shape[-2:])
-    details = []
-    for _ in range(levels):
-        a, h, v, d = _mode_fwd_level_pallas(a, wav, mode_r, mode_c)
-        details.append(tuple(t.reshape(batch + t.shape[1:])
-                             for t in (h, v, d)))
-    return Coeffs2D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _idwt2d_pallas_mode(coeffs, wav, shape, mode_r, mode_c):
-    from .modes import level_sizes as _msizes
-
-    levels = coeffs.levels
-    rows = _msizes(shape[0], levels, wav.hlen, mode_r)
-    cols = _msizes(shape[1], levels, wav.hlen, mode_c)
-    batch = coeffs.approx.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(coeffs.approx)
-    for i in range(levels - 1, -1, -1):
-        h, v, d = (flat(t) for t in coeffs.details[i])
-        a = _mode_inv_level_pallas(a, h, v, d, wav, rows[i], cols[i],
-                                   mode_r, mode_c)
-    return a.reshape(batch + a.shape[1:])
-
-
 def dwt2d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
           backend: Optional[str] = None, pad_fn=None,
           mode="periodization") -> Coeffs2D:
@@ -647,20 +98,10 @@ def dwt2d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     ``mode`` selects the boundary extension (core/modes.py; pywt mode
     set) — a string for both axes or a ``(row_mode, col_mode)`` tuple
     (pywt per-axis semantics).  The default ``"periodization"`` is the
-    reference scheme.  On TPU, f32 non-periodization transforms ride
-    the fused Pallas kernels (extension-as-pad, 1.8-7x measured; see
-    the mode-kernel block above) with per-level fma fallback."""
+    reference scheme."""
     from .modes import per_axis
 
     mode_r, mode_c = per_axis(mode, 2)
-    if (not _all_periodization(mode)
-            and _use_mode_pallas(backend, pad_fn, x.dtype)):
-        return _dwt2d_pallas_mode(x, wav, levels, mode_r, mode_c)
-    backend = _auto_backend(backend, pad_fn, mode)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _dwt2d_pallas(x, wav, levels)
     arr, batch = _to_nchw(x, 2)
     dec = (wav.dec_lo, wav.dec_hi)
     details: List[Tuple[jnp.ndarray, ...]] = []
@@ -682,17 +123,6 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
            backend: Optional[str] = None, pad_fn=None,
            mode="periodization") -> jnp.ndarray:
     """Inverse of :func:`dwt2d`; ``shape`` = (Nr, Nc) of the original image."""
-    from .modes import per_axis as _per_axis
-
-    if not _all_periodization(mode):
-        m_r, m_c = _per_axis(mode, 2)
-        if _use_mode_pallas(backend, pad_fn, coeffs.approx.dtype):
-            return _idwt2d_pallas_mode(coeffs, wav, shape, m_r, m_c)
-    backend = _auto_backend(backend, pad_fn, mode)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _idwt2d_pallas(coeffs, wav, shape)
     from .modes import level_sizes as _mode_sizes
     from .modes import per_axis
 
@@ -718,52 +148,6 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
 # 2D stationary (a-trous)
 # ---------------------------------------------------------------------------
 
-def _swt2d_pallas(x: jnp.ndarray, wav: Wavelet, levels: int,
-                  keep_approx: bool = False):
-    from .. import kernels
-
-    batch = x.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = x.reshape((b,) + x.shape[-2:])
-    dec = (wav.dec_lo, wav.dec_hi)
-    lo_t, hi_t = _ftup(wav.dec_lo), _ftup(wav.dec_hi)
-    mode = _mxu_mode(x.dtype)
-    # "mixed" routes SWT to the EXACT kernels: à-trous levels never
-    # shrink, so bf16x3 triples most of the work and measured SLOWER
-    # than the exact VPU kernels (0.81 vs 0.63 ms TI step at 1024^2) —
-    # exact trivially satisfies the mixed-precision contract.
-    if mode == "mixed":
-        mode = None
-
-    norm_out = _bf16_outs(mode)
-
-    details = []
-    approxs = []
-    for lvl in range(1, levels + 1):
-        res = None
-        if mode is not None:
-            res = kernels.swt_fwd_level_2d_mxu_ad(a, lo_t, hi_t, lvl, mode)
-        if res is None:
-            af = (a.astype(jnp.float32)
-                  if mode is not None and a.dtype != jnp.float32 else a)
-            res = kernels.swt_fwd_level_2d_ad(af, lo_t, hi_t, lvl)
-            if res is None:
-                f = 1 << (lvl - 1)
-                z = conv.analysis_pass(af[:, None], dec, axis=-1,
-                                       dilation=f, decimate=False,
-                                       backend="fma")
-                z = conv.analysis_pass(z, dec, axis=-2, dilation=f,
-                                       decimate=False, backend="fma")
-                res = (z[:, 0], z[:, 1], z[:, 2], z[:, 3])
-        a, h, v, d = norm_out(*res)
-        details.append(tuple(t.reshape(batch + t.shape[1:])
-                             for t in (h, v, d)))
-        if keep_approx:
-            approxs.append(a.reshape(batch + a.shape[1:]))
-    coeffs = Coeffs2D(a.reshape(batch + a.shape[1:]), tuple(details))
-    return (coeffs, tuple(approxs)) if keep_approx else coeffs
-
-
 @takes_precision
 def swt2d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
           backend: Optional[str] = None, pad_fn=None,
@@ -777,11 +161,6 @@ def swt2d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     ``(Coeffs2D, approxs)`` in that case; ``approxs[-1]`` is
     ``coeffs.approx``.
     """
-    backend = _auto_backend(backend, pad_fn)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _swt2d_pallas(x, wav, levels, keep_approx=keep_approx)
     arr, batch = _to_nchw(x, 2)
     dec = (wav.dec_lo, wav.dec_hi)
     details: List[Tuple[jnp.ndarray, ...]] = []
@@ -803,55 +182,9 @@ def swt2d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
-def _iswt2d_pallas(coeffs: Coeffs2D, wav: Wavelet) -> jnp.ndarray:
-    from .. import kernels
-
-    rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    batch = coeffs.approx.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(coeffs.approx)
-    ddt = coeffs.details[-1][0].dtype if coeffs.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (see _swt2d_pallas)
-    if mode == "bf16" and a.dtype != jnp.float32:
-        a = a.astype(jnp.float32)
-    f32 = _f32
-    for i in range(coeffs.levels - 1, -1, -1):
-        h, v, d = (flat(t) for t in coeffs.details[i])
-        y = None
-        if mode is not None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y = kernels.swt_inv_level_2d_mxu_ad(a, h, v, d, lo_t, hi_t,
-                                                i + 1, mode, out_dt)
-        if y is None:
-            if mode is not None:
-                a, h, v, d = f32(a), f32(h), f32(v), f32(d)
-            y = kernels.swt_inv_level_2d_ad(a, h, v, d, lo_t, hi_t, i + 1)
-        if y is None:
-            f = 1 << i
-            z = jnp.concatenate([t[:, None] for t in (a, h, v, d)], axis=1)
-            t2 = conv.synthesis_pass(z, rec, axis=-2, dilation=f,
-                                     decimated=False, backend="fma")
-            y = conv.synthesis_pass(t2, rec, axis=-1, dilation=f,
-                                    decimated=False, backend="fma")[:, 0]
-        if mode == "bf16" and i == 0 and y.dtype != jnp.bfloat16:
-            y = y.astype(jnp.bfloat16)
-        a = y
-    return a.reshape(batch + a.shape[1:])
-
-
 @takes_precision
 def iswt2d(coeffs: Coeffs2D, wav: Wavelet, *,
            backend: Optional[str] = None, pad_fn=None) -> jnp.ndarray:
-    backend = _auto_backend(backend, pad_fn)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _iswt2d_pallas(coeffs, wav)
     # Each separable synthesis pass halves the taps
     # (reference: src/separable.cu:581-584,621-622).
     rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
@@ -871,37 +204,6 @@ def iswt2d(coeffs: Coeffs2D, wav: Wavelet, *,
 # 1D (batched over leading dims)
 # ---------------------------------------------------------------------------
 
-def _dwt1d_pallas(x: jnp.ndarray, wav: Wavelet, levels: int) -> Coeffs1D:
-    from .. import kernels
-
-    batch = x.shape[:-1]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = x.reshape(b, x.shape[-1])
-    dec = (wav.dec_lo, wav.dec_hi)
-    lo_t, hi_t = _ftup(wav.dec_lo), _ftup(wav.dec_hi)
-    mode = _mxu_mode(x.dtype)
-    details = []
-    for _ in range(levels):
-        ae = conv.odd_extend(a, -1)
-        res = None
-        if mode is not None:
-            res = kernels.fwd_level_1d_mxu_ad(ae, lo_t, hi_t, mode)
-        if res is None:
-            af = (ae.astype(jnp.float32)
-                  if mode is not None and ae.dtype != jnp.float32 else ae)
-            res = kernels.fwd_level_1d_ad(af, lo_t, hi_t)
-            if res is None:
-                z = conv.analysis_pass(af[:, None, None], dec, axis=-1,
-                                       backend="fma")
-                res = (z[:, 0, 0], z[:, 1, 0])
-            if mode == "bf16":
-                res = (res[0].astype(jnp.float32),
-                       res[1].astype(jnp.bfloat16))
-        a, d = res
-        details.append(d.reshape(batch + d.shape[1:]))
-    return Coeffs1D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
 @takes_precision
 def dwt1d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
           backend: Optional[str] = None, pad_fn=None,
@@ -909,21 +211,6 @@ def dwt1d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     from .modes import per_axis
 
     (mode,) = per_axis(mode, 1)
-    if (mode != "periodization"
-            and _use_mode_pallas(backend, pad_fn, x.dtype)):
-        batch = x.shape[:-1]
-        b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-        a = x.reshape(b, x.shape[-1])
-        details = []
-        for _ in range(levels):
-            a, d = _mode_fwd_level_pallas_1d(a, wav, mode)
-            details.append(d.reshape(batch + d.shape[1:]))
-        return Coeffs1D(a.reshape(batch + a.shape[1:]), tuple(details))
-    backend = _auto_backend(backend, pad_fn, mode)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _dwt1d_pallas(x, wav, levels)
     arr, batch = _to_nchw(x, 1)
     dec = (wav.dec_lo, wav.dec_hi)
     details: List[jnp.ndarray] = []
@@ -936,72 +223,14 @@ def dwt1d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     return Coeffs1D(_from_nchw(a, batch, 1), tuple(details))
 
 
-def _idwt1d_pallas(coeffs: Coeffs1D, wav: Wavelet, length: int) -> jnp.ndarray:
-    from .. import kernels
-
-    levels = coeffs.levels
-    sizes = level_sizes(length, levels)
-    rec = (wav.rec_lo, wav.rec_hi)
-    batch = coeffs.approx.shape[:-1]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape(b, t.shape[-1])
-    a = flat(coeffs.approx)
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    ddt = coeffs.details[-1].dtype if coeffs.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "bf16" and a.dtype != jnp.float32:
-        a = a.astype(jnp.float32)
-    f32 = _f32
-    for i in range(levels - 1, -1, -1):
-        d = flat(coeffs.details[i])
-        y = None
-        if mode is not None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y = kernels.inv_level_1d_mxu_ad(a, d, lo_t, hi_t, mode, out_dt)
-        if y is None:
-            if mode is not None:
-                a, d = f32(a), f32(d)
-            y = kernels.inv_level_1d_ad(a, d, lo_t, hi_t)
-        if y is None:
-            z = jnp.concatenate([a[:, None, None], d[:, None, None]], axis=1)
-            y = conv.synthesis_pass(z, rec, axis=-1, out_len=sizes[i],
-                                    backend="fma")[:, 0, 0]
-        else:
-            y = y[:, :sizes[i]]
-        if mode == "bf16" and i == 0 and y.dtype != jnp.bfloat16:
-            y = y.astype(jnp.bfloat16)
-        a = y
-    return a.reshape(batch + a.shape[1:])
-
-
 @takes_precision
 def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *,
            backend: Optional[str] = None, pad_fn=None,
            mode="periodization") -> jnp.ndarray:
+    from .modes import level_sizes as _mode_sizes
     from .modes import per_axis
 
     (mode,) = per_axis(mode, 1)
-    if (mode != "periodization"
-            and _use_mode_pallas(backend, pad_fn, coeffs.approx.dtype)):
-        from .modes import level_sizes as _msizes
-
-        sizes = _msizes(length, coeffs.levels, wav.hlen, mode)
-        batch = coeffs.approx.shape[:-1]
-        b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-        flat = lambda t: t.reshape(b, t.shape[-1])
-        a = flat(coeffs.approx)
-        for i in range(coeffs.levels - 1, -1, -1):
-            a = _mode_inv_level_pallas_1d(a, flat(coeffs.details[i]),
-                                          wav, sizes[i], mode)
-        return a.reshape(batch + a.shape[1:])
-    backend = _auto_backend(backend, pad_fn, mode)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _idwt1d_pallas(coeffs, wav, length)
-    from .modes import level_sizes as _mode_sizes
-
     levels = coeffs.levels
     sizes = _mode_sizes(length, levels, wav.hlen, mode)
     rec = (wav.rec_lo, wav.rec_hi)
@@ -1019,119 +248,17 @@ def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *,
                    mode: str = "soft", normalize: bool = False,
                    do_thresh_appcoeffs: bool = False,
                    backend: Optional[str] = None) -> jnp.ndarray:
-    """Fused detail-threshold + inverse 2D SWT.
+    """Detail threshold followed by the inverse 2D SWT: the same result
+    as ops.soft/hard/garrote_threshold then :func:`iswt2d`, as one
+    traceable step (XLA fuses the elementwise threshold into the first
+    synthesis pass that reads each subband)."""
+    from .. import ops as _ops
 
-    On the pallas path the per-level detail threshold happens inside the
-    synthesis kernels' tile reads, eliminating the separate elementwise
-    pass over 3 full-size subbands per level and its HBM round-trip
-    (the reference launches one threshold kernel per subband,
-    src/common.cu:219-249, then re-reads everything in the inverse).
-    Semantics identical to ops.soft/hard_threshold followed by iswt2d.
-    Differentiable: the fused kernel carries a custom VJP that chains
-    the synthesis adjoint through the threshold mask
-    (kernels.swt_inv_level_2d_denoise_ad)."""
-    import math as _math
-
-    from ..ops.threshold import THR_ELEM, _app_beta
-
-    backend = _auto_backend(backend, None)
-    levels = coeffs.levels
-    lvl_beta = lambda i: (beta / (_math.sqrt(2.0) ** (i + 1))
-                          if normalize else beta)
-    if backend != "pallas" or isinstance(beta, (list, tuple)):
-        # per-level/per-band beta sequences ride the ops path (the
-        # fused kernels threshold a whole level with one scalar)
-        from .. import ops as _ops
-
-        fn = {"soft": _ops.soft_threshold, "hard": _ops.hard_threshold,
-              "garrote": _ops.garrote_threshold}[mode]
-        c2 = fn(coeffs, beta, normalize=normalize,
-                do_thresh_appcoeffs=do_thresh_appcoeffs)
-        return iswt2d(c2, wav, backend=backend)
-
-    from .. import kernels
-
-    thr = THR_ELEM[mode]
-    batch = coeffs.approx.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(coeffs.approx)
-    ddt = coeffs.details[-1][0].dtype if coeffs.details else a.dtype
-    mxu = _mxu_mode(ddt)
-    if mxu == "mixed":
-        mxu = None  # exact SWT kernels beat b3 (see _swt2d_pallas)
-    if mxu == "bf16" and a.dtype != jnp.float32:
-        a = a.astype(jnp.float32)
-    f32 = _f32
-    if do_thresh_appcoeffs:
-        a = thr(a, _app_beta(beta, levels, normalize))
-    rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    for i in range(levels - 1, -1, -1):
-        h, v, d = (flat(t) for t in coeffs.details[i])
-        bi = lvl_beta(i)
-        y = None
-        if mxu is not None:
-            out_dt = (jnp.bfloat16 if (mxu == "bf16" and i == 0)
-                      else jnp.float32)
-            y = kernels.swt_inv_level_2d_mxu_denoise_ad(
-                a, h, v, d, bi, lo_t, hi_t, i + 1, mxu, mode, out_dt)
-        if y is None:
-            if mxu is not None:
-                a, h, v, d = f32(a), f32(h), f32(v), f32(d)
-            y = kernels.swt_inv_level_2d_denoise_ad(
-                a, h, v, d, bi, lo_t, hi_t, i + 1, mode)
-        if y is None:
-            f = 1 << i
-            h, v, d = thr(h, bi), thr(v, bi), thr(d, bi)
-            z = jnp.concatenate([t[:, None] for t in (a, h, v, d)], axis=1)
-            t2 = conv.synthesis_pass(z, rec, axis=-2, dilation=f,
-                                     decimated=False, backend="fma")
-            y = conv.synthesis_pass(t2, rec, axis=-1, dilation=f,
-                                    decimated=False, backend="fma")[:, 0]
-        if mxu == "bf16" and i == 0 and y.dtype != jnp.bfloat16:
-            y = y.astype(jnp.bfloat16)
-        a = y
-    return a.reshape(batch + a.shape[1:])
-
-
-def _swt1d_pallas(x: jnp.ndarray, wav: Wavelet, levels: int,
-                  keep_approx: bool = False):
-    from .. import kernels
-
-    batch = x.shape[:-1]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = x.reshape(b, x.shape[-1])
-    dec = (wav.dec_lo, wav.dec_hi)
-    lo_t, hi_t = _ftup(wav.dec_lo), _ftup(wav.dec_hi)
-    mode = _mxu_mode(x.dtype)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (see _swt2d_pallas)
-    details = []
-    approxs = []
-    for lvl in range(1, levels + 1):
-        res = None
-        if mode is not None:
-            res = kernels.swt_fwd_level_1d_mxu_ad(a, lo_t, hi_t, lvl, mode)
-        if res is None:
-            af = (a.astype(jnp.float32)
-                  if mode is not None and a.dtype != jnp.float32 else a)
-            res = kernels.swt_fwd_level_1d_ad(af, lo_t, hi_t, lvl)
-            if res is None:
-                f = 1 << (lvl - 1)
-                z = conv.analysis_pass(af[:, None, None], dec, axis=-1,
-                                       dilation=f, decimate=False,
-                                       backend="fma")
-                res = (z[:, 0, 0], z[:, 1, 0])
-            if mode == "bf16":
-                res = (res[0].astype(jnp.float32),
-                       res[1].astype(jnp.bfloat16))
-        a, d = res
-        details.append(d.reshape(batch + d.shape[1:]))
-        if keep_approx:
-            approxs.append(a.reshape(batch + a.shape[1:]))
-    coeffs = Coeffs1D(a.reshape(batch + a.shape[1:]), tuple(details))
-    return (coeffs, tuple(approxs)) if keep_approx else coeffs
+    fn = {"soft": _ops.soft_threshold, "hard": _ops.hard_threshold,
+          "garrote": _ops.garrote_threshold}[mode]
+    c2 = fn(coeffs, beta, normalize=normalize,
+            do_thresh_appcoeffs=do_thresh_appcoeffs)
+    return iswt2d(c2, wav, backend=backend)
 
 
 @takes_precision
@@ -1139,11 +266,6 @@ def swt1d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
           backend: Optional[str] = None, pad_fn=None,
           keep_approx: bool = False):
     """Stationary 1D transform; ``keep_approx`` as in :func:`swt2d`."""
-    backend = _auto_backend(backend, pad_fn)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _swt1d_pallas(x, wav, levels, keep_approx=keep_approx)
     arr, batch = _to_nchw(x, 1)
     dec = (wav.dec_lo, wav.dec_hi)
     details: List[jnp.ndarray] = []
@@ -1161,53 +283,9 @@ def swt1d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
-def _iswt1d_pallas(coeffs: Coeffs1D, wav: Wavelet) -> jnp.ndarray:
-    from .. import kernels
-
-    rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-    batch = coeffs.approx.shape[:-1]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape(b, t.shape[-1])
-    a = flat(coeffs.approx)
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    ddt = coeffs.details[-1].dtype if coeffs.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (see _swt2d_pallas)
-    if mode == "bf16" and a.dtype != jnp.float32:
-        a = a.astype(jnp.float32)
-    f32 = _f32
-    for i in range(coeffs.levels - 1, -1, -1):
-        d = flat(coeffs.details[i])
-        y = None
-        if mode is not None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y = kernels.swt_inv_level_1d_mxu_ad(a, d, lo_t, hi_t, i + 1,
-                                                mode, out_dt)
-        if y is None:
-            if mode is not None:
-                a, d = f32(a), f32(d)
-            y = kernels.swt_inv_level_1d_ad(a, d, lo_t, hi_t, i + 1)
-        if y is None:
-            f = 1 << i
-            z = jnp.concatenate([a[:, None, None], d[:, None, None]], axis=1)
-            y = conv.synthesis_pass(z, rec, axis=-1, dilation=f,
-                                    decimated=False, backend="fma")[:, 0, 0]
-        if mode == "bf16" and i == 0 and y.dtype != jnp.bfloat16:
-            y = y.astype(jnp.bfloat16)
-        a = y
-    return a.reshape(batch + a.shape[1:])
-
-
 @takes_precision
 def iswt1d(coeffs: Coeffs1D, wav: Wavelet, *,
            backend: Optional[str] = None, pad_fn=None) -> jnp.ndarray:
-    backend = _auto_backend(backend, pad_fn)
-    if backend == "pallas":
-        if pad_fn is not None:
-            raise ValueError("pallas backend does not support pad_fn")
-        return _iswt1d_pallas(coeffs, wav)
     # Single pass in 1D -> one 1/2 factor (reference: src/separable.cu:653-672).
     rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
     a, batch = _to_nchw(coeffs.approx, 1)

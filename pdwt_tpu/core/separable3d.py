@@ -18,12 +18,6 @@ which corresponds to pywt's ``dwtn`` keys (axis order depth, row, col):
 e.g. ``details[i][0]`` is highpass along depth only.  The 2D convention
 (H = highpass along rows first) is the middle-axis analogue.
 
-TPU notes: the default backend composes the fused 2D Pallas level kernel
-over the (row, col) axes — depth rides as the kernel's batch dimension,
-so the per-level hot path is identical to the 2D engine's — with the
-depth pass running as the fma slice-FMA formulation along axis 0 of the
-(depth-major) subbands, which XLA lowers to contiguous full-plane
-reads (unit stride in the minor two axes; no relayouts).
 """
 from __future__ import annotations
 
@@ -34,33 +28,7 @@ import numpy as np
 
 from ..filters import Wavelet
 from . import conv
-from .depth_matmul import depth_analysis_mm, depth_synthesis_mm, use_depth_mm
-from .separable import _auto_backend, _f32, _ftup, _mxu_mode
-from .shapes import level_sizes
 from .precision import takes_precision
-
-
-def _depth_analysis(x, filters, *, dilation=1, decimate=True, pad_fn=None):
-    """Depth (axis -3) analysis of the pallas compositions: the MXU
-    banded-matrix formulation when the padding is the baked periodic
-    wrap (core/depth_matmul.py — one HBM read instead of hlen slice-FMA
-    streams), the fma slice-FMA pass when a halo ``pad_fn`` rides."""
-    if pad_fn is None and use_depth_mm():
-        return depth_analysis_mm(x, filters, dilation=dilation,
-                                 decimate=decimate)
-    return conv.analysis_pass(x, filters, axis=-3, dilation=dilation,
-                              decimate=decimate, backend="fma",
-                              pad_fn=pad_fn)
-
-
-def _depth_synthesis(z, filters, *, out_len, dilation=1, decimated=True,
-                     pad_fn=None):
-    if pad_fn is None and use_depth_mm():
-        return depth_synthesis_mm(z, filters, out_len=out_len,
-                                  dilation=dilation, decimated=decimated)
-    return conv.synthesis_pass(z, filters, axis=-3, out_len=out_len,
-                               dilation=dilation, decimated=decimated,
-                               backend="fma", pad_fn=pad_fn)
 
 #: pywt-style subband keys (axis order depth,row,col) for details[i][j].
 DETAIL_KEYS_3D = ("daa", "ada", "dda", "aad", "dad", "add", "ddd")
@@ -89,91 +57,6 @@ def _from_ncs(x: jnp.ndarray, batch):
     return x.reshape(batch + x.shape[-3:])
 
 
-# ---------------------------------------------------------------------------
-# Pallas composition: the 2D fused level kernel handles the (row, col)
-# axes with depth riding as its batch dimension; the depth pass runs as
-# the fma slice-FMA formulation (contiguous full-plane reads — depth is
-# the major axis, so no relayouts).
-# ---------------------------------------------------------------------------
-
-def _depth_split(res, wav, b, d, *, dilation=1, decimate=True, mode=None,
-                 pad_fn=None):
-    """Depth analysis of the four (B*D, r, c) 2D-level subbands.
-    Returns the 8 analysis channels (each (B, D', r, c)) in order
-    ch = 4*k_col + 2*k_row + k_dep — pairing each 2D subband (order
-    (a, h, v, d) = 2*k_col + k_row) with its depth lo/hi.
-
-    The A-chain (from subband a) and the details run as separate passes
-    because in bf16 mode they carry different dtypes (f32 chain, bf16
-    details); channel 1 (daa) is a detail and is downcast.  ``pad_fn``
-    lets the sharded engine ride its depth halo ring here.
-
-    Each 2D subband gets its OWN 1-channel depth pass: the round-4 chip
-    probe measured the stacked 3-channel variant at 3.66 ms/level vs
-    1.23 ms for per-band calls at 64x512x512 — the jnp.stack of the
-    pallas outputs plus the channel re-slicing of the einsum result
-    tripled the HBM traffic (tools/ glue probes, CLAUDE.md round-4)."""
-    r, c = res[0].shape[-2:]
-    kw = dict(dilation=dilation, decimate=decimate, pad_fn=pad_fn)
-    dec = (wav.dec_lo, wav.dec_hi)
-    pairs = [_depth_analysis(t.reshape(b, 1, d, r, c), dec, **kw)
-             for t in res]                                  # (B, 2, ...)
-    daa = pairs[0][:, 1]
-    if mode == "bf16":
-        daa = daa.astype(jnp.bfloat16)
-    return (pairs[0][:, 0], daa, pairs[1][:, 0], pairs[1][:, 1],
-            pairs[2][:, 0], pairs[2][:, 1], pairs[3][:, 0],
-            pairs[3][:, 1])
-
-
-def _fwd_level_3d_pallas(a: jnp.ndarray, wav: Wavelet, lo_t, hi_t, mode):
-    """One decimated 3D level on (B, D, R, C) input via the fused 2D
-    kernel (MXU banded-matmul under the precision modes, exact VPU
-    otherwise) + fma depth pass.  Returns the 8 channels as a tuple
-    (each (B, D/2, R/2, C/2)), or None when the 2D kernel rejects."""
-    from .. import kernels
-
-    b, d, r, c = a.shape
-    flat = a.reshape(b * d, r, c)
-    res = None
-    if mode is not None:
-        res = kernels.fwd_level_2d_mxu_ad(flat, lo_t, hi_t, mode)
-    if res is None:
-        if mode is not None and flat.dtype != jnp.float32:
-            flat = flat.astype(jnp.float32)
-        if flat.dtype != jnp.float32:
-            return None
-        res = kernels.fwd_level_2d_ad(flat, lo_t, hi_t)
-        if res is not None and mode == "bf16":
-            res = (res[0],) + tuple(t.astype(jnp.bfloat16) for t in res[1:])
-    if res is None:
-        return None
-    return _depth_split(res, wav, b, d, mode=mode)
-
-
-def _inv_level_3d_pallas(z: jnp.ndarray, wav: Wavelet, lo_t, hi_t,
-                         out_drc: Tuple[int, int, int]):
-    """Inverse of one 3D level from the coefficient stack ``z`` of shape
-    (B, 8, dm, rm, cm): depth synthesis first (the depth k bit is
-    channel-minor, so groups of 2 consecutive channels combine), then
-    the fused 2D inverse kernel over (R, C) with depth as batch.
-    Returns (B, Dout, R, C) or None when the 2D kernel rejects."""
-    from .. import kernels
-
-    if z.dtype != jnp.float32:
-        return None
-    t = _depth_synthesis(z, (wav.rec_lo, wav.rec_hi),
-                         out_len=out_drc[0])  # (B, 4, Dout, rm, cm)
-    b, _, dd, rm, cm = t.shape
-    flat = lambda k: t[:, k].reshape(b * dd, rm, cm)
-    y = kernels.inv_level_2d_ad(flat(0), flat(1), flat(2), flat(3),
-                                lo_t, hi_t)
-    if y is None:
-        return None
-    y = y[:, :out_drc[1], :out_drc[2]]
-    return y.reshape(b, dd, y.shape[-2], y.shape[-1])
-
-
 @takes_precision
 def dwt3d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
           backend: Optional[str] = None, pad_fn=None,
@@ -184,103 +67,27 @@ def dwt3d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     (reference: src/separable.cu:91-131, generalized to the axis the
     reference does not have: its README lists "3D is not handled" as the
     first limitation).  ``mode`` selects the boundary extension
-    (core/modes.py; non-periodization modes ride the conv backends) —
-    a string or a ``(depth, row, col)`` tuple (pywt per-axis semantics).
+    (core/modes.py) — a string or a ``(depth, row, col)`` tuple (pywt
+    per-axis semantics).
     """
     from .modes import per_axis
 
     mode_d, mode_r, mode_c = per_axis(mode, 3)
-    backend = _auto_backend(backend, pad_fn, mode)
-    use_pallas = backend == "pallas"
-    if use_pallas and pad_fn is not None:
-        raise ValueError("pallas backend does not support pad_fn")
-    if use_pallas:
-        backend = "fma"  # fallback / depth-pass backend
     arr, batch = _to_ncs(x)
     dec = (wav.dec_lo, wav.dec_hi)
-    lo_t, hi_t = _ftup(wav.dec_lo), _ftup(wav.dec_hi)
-    mxu = _mxu_mode(x.dtype) if use_pallas else None
     details: List[Tuple[jnp.ndarray, ...]] = []
     a = arr
     for _ in range(levels):
-        bands = None
-        if use_pallas:
-            ae = a[:, 0]
-            for ax in (-1, -2, -3):
-                ae = conv.odd_extend(ae, ax)
-            bands = _fwd_level_3d_pallas(ae, wav, lo_t, hi_t, mxu)
-        if bands is None:
-            af = _f32(a) if mxu is not None else a
-            t = conv.analysis_pass(af, dec, axis=-1, backend=backend,
-                                   pad_fn=pad_fn, mode=mode_c)
-            t = conv.analysis_pass(t, dec, axis=-2, backend=backend,
-                                   pad_fn=pad_fn, mode=mode_r)
-            z = conv.analysis_pass(t, dec, axis=-3, backend=backend,
-                                   pad_fn=pad_fn, mode=mode_d)
-            bands = tuple(z[:, k] for k in range(8))
-            if mxu == "bf16":
-                bands = (bands[0],) + tuple(t.astype(jnp.bfloat16)
-                                            for t in bands[1:])
-        a = bands[0][:, None]
-        details.append(tuple(_from_ncs(t[:, None], batch)
-                             for t in bands[1:]))
+        t = conv.analysis_pass(a, dec, axis=-1, backend=backend,
+                               pad_fn=pad_fn, mode=mode_c)
+        t = conv.analysis_pass(t, dec, axis=-2, backend=backend,
+                               pad_fn=pad_fn, mode=mode_r)
+        z = conv.analysis_pass(t, dec, axis=-3, backend=backend,
+                               pad_fn=pad_fn, mode=mode_d)
+        a = z[:, 0:1]
+        details.append(tuple(_from_ncs(z[:, k:k + 1], batch)
+                             for k in range(1, 8)))
     return Coeffs3D(_from_ncs(a, batch), tuple(details))
-
-
-def _inv_level_3d_regrouped(a, bands7, b, dd, inv2d, wav, *,
-                            out_dep=None, swt_level=None, pad_fn=None):
-    """Invert one 3D level regrouped by the depth bit — the synthesis
-    passes act on independent axes and therefore commute, so the level
-    inverts as TWO fused 2D inverses (one per k_dep; the k_dep=0 group
-    is exactly the 2D bf16 contract: f32 A + bf16 details) followed by
-    the depth synthesis.  Shared by the single-chip MXU inverse and the
-    sharded local compositions (``pad_fn`` = the depth halo ring).
-
-    ``inv2d(a2, h2, v2, d2)`` inverts one k_dep group of (B·dd, mr, mc)
-    subbands to (B·dd, R, C), or returns None to reject.  ch = 4·k_col +
-    2·k_row + k_dep; 2D kernel order (a, h, v, d) = 2·k_col + k_row;
-    ``bands7[j]`` is channel j+1.  Returns (B, D', R, C) or None."""
-    flat = lambda t: t.reshape((b * dd,) + t.shape[-2:])
-    outs = []
-    for grp in ((a, bands7[1], bands7[3], bands7[5]),          # k_dep = 0
-                (bands7[0], bands7[2], bands7[4], bands7[6])):  # k_dep = 1
-        y = inv2d(*(flat(t) for t in grp))
-        if y is None:
-            return None
-        outs.append(y.reshape(b, dd, y.shape[-2], y.shape[-1]))
-    z = jnp.stack(outs, axis=1)  # (B, 2, dd, R, C) — k_dep pairs
-    if swt_level is None:
-        out = _depth_synthesis(z, (wav.rec_lo, wav.rec_hi),
-                               out_len=out_dep, pad_fn=pad_fn)
-    else:
-        out = _depth_synthesis(z, (wav.rec_lo * 0.5, wav.rec_hi * 0.5),
-                               out_len=z.shape[-3],
-                               dilation=1 << (swt_level - 1),
-                               decimated=False, pad_fn=pad_fn)
-    return out[:, 0]
-
-
-def _inv_level_3d_pallas_mxu(a, bands7, wav, lo_t, hi_t, out_drc, mode,
-                             out_dtype, *, swt_level=None):
-    """MXU inverse of one 3D level via the depth-bit regrouping.
-    Returns (B, D, R, C) in ``out_dtype`` or None when a 2D kernel
-    rejects."""
-    from .. import kernels
-
-    def inv2d(a2, h2, v2, d2):
-        if swt_level is None:
-            y = kernels.inv_level_2d_mxu_ad(a2, h2, v2, d2, lo_t, hi_t,
-                                            mode, jnp.float32)
-        else:
-            y = kernels.swt_inv_level_2d_mxu_ad(a2, h2, v2, d2, lo_t,
-                                                hi_t, swt_level, mode,
-                                                jnp.float32)
-        return None if y is None else y[:, :out_drc[1], :out_drc[2]]
-
-    out = _inv_level_3d_regrouped(a, bands7, a.shape[0], a.shape[1],
-                                  inv2d, wav, out_dep=out_drc[0],
-                                  swt_level=swt_level)
-    return None if out is None else out.astype(out_dtype)
 
 
 @takes_precision
@@ -289,12 +96,6 @@ def idwt3d(coeffs: Coeffs3D, wav: Wavelet,
            backend: Optional[str] = None, pad_fn=None,
            mode="periodization") -> jnp.ndarray:
     """Inverse of :func:`dwt3d`; ``shape`` = (Nd, Nr, Nc)."""
-    backend = _auto_backend(backend, pad_fn, mode)
-    use_pallas = backend == "pallas"
-    if use_pallas and pad_fn is not None:
-        raise ValueError("pallas backend does not support pad_fn")
-    if use_pallas:
-        backend = "fma"
     from .modes import level_sizes as _mode_sizes
     from .modes import per_axis
 
@@ -304,40 +105,12 @@ def idwt3d(coeffs: Coeffs3D, wav: Wavelet,
     rows = _mode_sizes(shape[1], levels, wav.hlen, mode_r)
     cols = _mode_sizes(shape[2], levels, wav.hlen, mode_c)
     rec = (wav.rec_lo, wav.rec_hi)
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    ddt = (coeffs.details[-1][0].dtype if coeffs.details
-           else coeffs.approx.dtype)
-    mxu = _mxu_mode(ddt) if use_pallas else None
     a, batch = _to_ncs(coeffs.approx)
-    if mxu == "bf16":
-        a = _f32(a)
     for i in range(levels - 1, -1, -1):
-        out_dt = (jnp.bfloat16 if (mxu == "bf16" and i == 0)
-                  else jnp.float32)
-        drc = (deps[i], rows[i], cols[i])
         bands = [_to_ncs(c)[0] for c in coeffs.details[i]]
-        y = None
-        if mxu is not None:
-            y = _inv_level_3d_pallas_mxu(a[:, 0], [t[:, 0] for t in bands],
-                                         wav, lo_t, hi_t, drc, mxu,
-                                         out_dt)
-        if y is None and use_pallas:
-            if mxu is not None:
-                a = _f32(a)
-                bands = [_f32(t) for t in bands]
-            z = jnp.concatenate([a] + bands, axis=1)  # (B, 8, d, r, c)
-            y = _inv_level_3d_pallas(z, wav, lo_t, hi_t, drc)
-            if y is not None and mxu is not None:
-                y = y.astype(out_dt)
-        if y is not None:
-            a = y[:, None]
-            continue
         # synthesis in reverse analysis order: depth, rows, cols — each
         # pass combines groups of 2 consecutive channels (the k bit of
         # that axis is the least-significant one remaining).
-        if mxu is not None:
-            a = _f32(a)
-            bands = [_f32(t) for t in bands]
         z = jnp.concatenate([a] + bands, axis=1)
         t = conv.synthesis_pass(z, rec, axis=-3, out_len=deps[i],
                                 backend=backend, pad_fn=pad_fn, mode=mode_d)
@@ -345,63 +118,12 @@ def idwt3d(coeffs: Coeffs3D, wav: Wavelet,
                                 backend=backend, pad_fn=pad_fn, mode=mode_r)
         a = conv.synthesis_pass(t, rec, axis=-1, out_len=cols[i],
                                 backend=backend, pad_fn=pad_fn, mode=mode_c)
-        if mxu is not None:
-            a = a.astype(out_dt)
     return _from_ncs(a, batch)
 
 
 # ---------------------------------------------------------------------------
 # 3D stationary (a-trous)
 # ---------------------------------------------------------------------------
-
-def _swt_fwd_level_3d_pallas(a: jnp.ndarray, wav: Wavelet, lo_t, hi_t,
-                             lvl: int, mode):
-    """One à-trous 3D level on (B, D, R, C) input: fused 2D SWT kernel
-    (MXU in bf16 mode — "mixed" routes to the exact kernels like the 2D
-    engine: b3 on undecimated levels measured slower) over (R, C) with
-    depth as batch, then the dilated fma depth pass.  Returns the 8
-    channels as a tuple, or None."""
-    from .. import kernels
-
-    b, d, r, c = a.shape
-    flat = a.reshape(b * d, r, c)
-    res = None
-    if mode == "bf16":
-        res = kernels.swt_fwd_level_2d_mxu_ad(flat, lo_t, hi_t, lvl, mode)
-    if res is None:
-        if mode is not None and flat.dtype != jnp.float32:
-            flat = flat.astype(jnp.float32)
-        if flat.dtype != jnp.float32:
-            return None
-        res = kernels.swt_fwd_level_2d_ad(flat, lo_t, hi_t, lvl)
-        if res is not None and mode == "bf16":
-            res = (res[0],) + tuple(t.astype(jnp.bfloat16) for t in res[1:])
-    if res is None:
-        return None
-    return _depth_split(res, wav, b, d, dilation=1 << (lvl - 1),
-                        decimate=False, mode=mode)
-
-
-def _swt_inv_level_3d_pallas(z: jnp.ndarray, wav: Wavelet, lo_t, hi_t,
-                             lvl: int):
-    """Inverse of one à-trous 3D level from (B, 8, D, R, C): dilated
-    depth synthesis (taps halved — the per-pass 1/2) first, then the
-    fused 2D SWT inverse kernel (which applies its own 1/4) with depth
-    as batch.  Returns (B, D, R, C) or None."""
-    from .. import kernels
-
-    if z.dtype != jnp.float32:
-        return None
-    t = _depth_synthesis(z, (wav.rec_lo * 0.5, wav.rec_hi * 0.5),
-                         out_len=z.shape[-3], dilation=1 << (lvl - 1),
-                         decimated=False)
-    b, _, d, r, c = t.shape
-    flat = lambda k: t[:, k].reshape(b * d, r, c)
-    y = kernels.swt_inv_level_2d_ad(flat(0), flat(1), flat(2), flat(3),
-                                    lo_t, hi_t, lvl)
-    if y is None:
-        return None
-    return y.reshape(b, d, r, c)
 
 @takes_precision
 def swt3d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
@@ -410,43 +132,25 @@ def swt3d(x: jnp.ndarray, wav: Wavelet, levels: int, *,
     """Stationary (undecimated) 3D transform; filter dilated by
     2^(level-1) per level, no subsampling.  ``keep_approx=True`` also
     returns the per-level approximation stack (multi-resolution)."""
-    backend = _auto_backend(backend, pad_fn)
-    use_pallas = backend == "pallas"
-    if use_pallas and pad_fn is not None:
-        raise ValueError("pallas backend does not support pad_fn")
-    if use_pallas:
-        backend = "fma"
     arr, batch = _to_ncs(x)
     dec = (wav.dec_lo, wav.dec_hi)
-    lo_t, hi_t = _ftup(wav.dec_lo), _ftup(wav.dec_hi)
-    mode = _mxu_mode(x.dtype) if use_pallas else None
     details: List[Tuple[jnp.ndarray, ...]] = []
     approxs: List[jnp.ndarray] = []
     a = arr
     for lvl in range(1, levels + 1):
         f = 1 << (lvl - 1)
-        bands = None
-        if use_pallas:
-            bands = _swt_fwd_level_3d_pallas(a[:, 0], wav, lo_t, hi_t,
-                                             lvl, mode)
-        if bands is None:
-            af = _f32(a) if mode is not None else a
-            t = conv.analysis_pass(af, dec, axis=-1, dilation=f,
-                                   decimate=False, backend=backend,
-                                   pad_fn=pad_fn)
-            t = conv.analysis_pass(t, dec, axis=-2, dilation=f,
-                                   decimate=False, backend=backend,
-                                   pad_fn=pad_fn)
-            z = conv.analysis_pass(t, dec, axis=-3, dilation=f,
-                                   decimate=False, backend=backend,
-                                   pad_fn=pad_fn)
-            bands = tuple(z[:, k] for k in range(8))
-            if mode == "bf16":
-                bands = (bands[0],) + tuple(t.astype(jnp.bfloat16)
-                                            for t in bands[1:])
-        a = bands[0][:, None]
-        details.append(tuple(_from_ncs(t[:, None], batch)
-                             for t in bands[1:]))
+        t = conv.analysis_pass(a, dec, axis=-1, dilation=f,
+                               decimate=False, backend=backend,
+                               pad_fn=pad_fn)
+        t = conv.analysis_pass(t, dec, axis=-2, dilation=f,
+                               decimate=False, backend=backend,
+                               pad_fn=pad_fn)
+        z = conv.analysis_pass(t, dec, axis=-3, dilation=f,
+                               decimate=False, backend=backend,
+                               pad_fn=pad_fn)
+        a = z[:, 0:1]
+        details.append(tuple(_from_ncs(z[:, k:k + 1], batch)
+                             for k in range(1, 8)))
         if keep_approx:
             approxs.append(_from_ncs(a, batch))
     coeffs = Coeffs3D(_from_ncs(a, batch), tuple(details))
@@ -460,47 +164,11 @@ def iswt3d(coeffs: Coeffs3D, wav: Wavelet, *,
     halves the taps (the 2D reference divides by 2 per pass,
     src/separable.cu:581-584; three passes give the 1/8 that averages
     the 3D redundancy)."""
-    backend = _auto_backend(backend, pad_fn)
-    use_pallas = backend == "pallas"
-    if use_pallas and pad_fn is not None:
-        raise ValueError("pallas backend does not support pad_fn")
-    if use_pallas:
-        backend = "fma"
     rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    ddt = (coeffs.details[-1][0].dtype if coeffs.details
-           else coeffs.approx.dtype)
-    mode = _mxu_mode(ddt) if use_pallas else None
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (see _swt2d_pallas)
     a, batch = _to_ncs(coeffs.approx)
-    if mode == "bf16":
-        a = _f32(a)
-    nd, nr, nc = a.shape[-3:]
     for i in range(coeffs.levels - 1, -1, -1):
         f = 1 << i
-        out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                  else jnp.float32)
         bands = [_to_ncs(c)[0] for c in coeffs.details[i]]
-        y = None
-        if mode is not None:
-            y = _inv_level_3d_pallas_mxu(a[:, 0], [t[:, 0] for t in bands],
-                                         wav, lo_t, hi_t, (nd, nr, nc),
-                                         mode, out_dt, swt_level=i + 1)
-        if y is None and use_pallas:
-            if mode is not None:
-                a = _f32(a)
-                bands = [_f32(t) for t in bands]
-            z = jnp.concatenate([a] + bands, axis=1)
-            y = _swt_inv_level_3d_pallas(z, wav, lo_t, hi_t, i + 1)
-            if y is not None and mode is not None:
-                y = y.astype(out_dt)
-        if y is not None:
-            a = y[:, None]
-            continue
-        if mode is not None:
-            a = _f32(a)
-            bands = [_f32(t) for t in bands]
         z = jnp.concatenate([a] + bands, axis=1)
         t = conv.synthesis_pass(z, rec, axis=-3, dilation=f,
                                 decimated=False, backend=backend,
@@ -511,8 +179,6 @@ def iswt3d(coeffs: Coeffs3D, wav: Wavelet, *,
         a = conv.synthesis_pass(t, rec, axis=-1, dilation=f,
                                 decimated=False, backend=backend,
                                 pad_fn=pad_fn)
-        if mode is not None:
-            a = a.astype(out_dt)
     return _from_ncs(a, batch)
 
 
@@ -521,89 +187,13 @@ def iswt3d_denoise(coeffs: Coeffs3D, wav: Wavelet, beta, *,
                    mode: str = "soft", normalize: bool = False,
                    do_thresh_appcoeffs: bool = False,
                    backend: Optional[str] = None) -> jnp.ndarray:
-    """Fused detail-threshold + inverse 3D SWT (the volume analogue of
-    separable.iswt2d_denoise).
+    """Detail threshold followed by the inverse 3D SWT (the volume
+    analogue of separable.iswt2d_denoise): the same result as
+    ops.soft/hard/garrote_threshold then :func:`iswt3d`."""
+    from .. import ops as _ops
 
-    On the pallas path each level inverts via the depth-bit regrouping
-    (two fused 2D inverses + depth synthesis); the 2D denoise kernels
-    threshold their (h, v, d) channels inside the tile reads
-    (kernels.swt_inv_level_2d_denoise_ad / the MXU variant), covering 6
-    of the 7 detail channels — channel 1 (daa) rides the hi group's
-    a-slot, which the kernels leave untouched, so it is thresholded
-    explicitly first.  Semantics identical to ops.soft/hard_threshold
-    followed by iswt3d; differentiable through the kernels' custom
-    VJPs.  Pairs with ops.thresholded_norm1 so a 3D TI-denoise step
-    never writes thresholded coefficients to HBM."""
-    import math as _math
-
-    from ..ops.threshold import THR_ELEM, _app_beta
-
-    backend = _auto_backend(backend, None)
-    levels = coeffs.levels
-    lvl_beta = lambda i: (beta / (_math.sqrt(2.0) ** (i + 1))
-                          if normalize else beta)
-    if backend != "pallas" or isinstance(beta, (list, tuple)):
-        # per-level/per-band beta sequences ride the ops path (the
-        # fused kernels threshold a whole level with one scalar)
-        from .. import ops as _ops
-
-        fn = {"soft": _ops.soft_threshold, "hard": _ops.hard_threshold,
-              "garrote": _ops.garrote_threshold}[mode]
-        c2 = fn(coeffs, beta, normalize=normalize,
-                do_thresh_appcoeffs=do_thresh_appcoeffs)
-        return iswt3d(c2, wav, backend=backend)
-
-    from .. import kernels
-
-    thr = THR_ELEM[mode]
-    ddt = (coeffs.details[-1][0].dtype if coeffs.details
-           else coeffs.approx.dtype)
-    mxu = _mxu_mode(ddt)
-    if mxu == "mixed":
-        mxu = None  # exact SWT kernels beat b3 (see separable._swt2d_pallas)
-    a, batch = _to_ncs(coeffs.approx)
-    if mxu == "bf16":
-        a = _f32(a)
-    if do_thresh_appcoeffs:
-        a = thr(a, _app_beta(beta, levels, normalize))
-    lo_t, hi_t = _ftup(wav.rec_lo), _ftup(wav.rec_hi)
-    for i in range(levels - 1, -1, -1):
-        bands = [_to_ncs(c)[0][:, 0] for c in coeffs.details[i]]
-        bi = lvl_beta(i)
-        out_dt = (jnp.bfloat16 if (mxu == "bf16" and i == 0)
-                  else jnp.float32)
-        av = a[:, 0]
-
-        def inv2d(a2, h2, v2, d2, _bi=bi, _lvl=i + 1):
-            if mxu is not None:
-                y2 = kernels.swt_inv_level_2d_mxu_denoise_ad(
-                    a2, h2, v2, d2, _bi, lo_t, hi_t, _lvl, mxu, mode,
-                    jnp.float32)
-                if y2 is not None:
-                    return y2
-                a2, h2, v2, d2 = _f32(a2), _f32(h2), _f32(v2), _f32(d2)
-            if a2.dtype != jnp.float32:
-                return None
-            return kernels.swt_inv_level_2d_denoise_ad(
-                a2, h2, v2, d2, _bi, lo_t, hi_t, _lvl, mode)
-
-        # channel 1 (daa) sits in the hi group's a-slot — threshold it
-        # up front (1 of 7 subbands; the kernels fuse the other 6)
-        bands_t = [thr(bands[0], bi)] + bands[1:]
-        y = _inv_level_3d_regrouped(av, bands_t, av.shape[0], av.shape[1],
-                                    inv2d, wav, swt_level=i + 1)
-        if y is None:
-            if mxu is not None:
-                av = _f32(av)
-                bands = [_f32(t) for t in bands]
-            z = jnp.stack([av] + [thr(t, bi) for t in bands], axis=1)
-            f = 1 << i
-            rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-            t2 = conv.synthesis_pass(z, rec, axis=-3, dilation=f,
-                                     decimated=False, backend="fma")
-            t2 = conv.synthesis_pass(t2, rec, axis=-2, dilation=f,
-                                     decimated=False, backend="fma")
-            y = conv.synthesis_pass(t2, rec, axis=-1, dilation=f,
-                                    decimated=False, backend="fma")[:, 0]
-        a = y.astype(out_dt)[:, None]
-    return _from_ncs(a, batch)
+    fn = {"soft": _ops.soft_threshold, "hard": _ops.hard_threshold,
+          "garrote": _ops.garrote_threshold}[mode]
+    c2 = fn(coeffs, beta, normalize=normalize,
+            do_thresh_appcoeffs=do_thresh_appcoeffs)
+    return iswt3d(c2, wav, backend=backend)

@@ -20,9 +20,8 @@ reference: src/separable.cu:409-493).  The starlet's single isotropic
 detail plane per scale is what astronomy/biomedical denoising and
 deconvolution pipelines expect.
 
-TPU notes: every pass is the lowpass-only :func:`conv.analysis_pass`
-(fma slice-FMA formulation — K=1 dual of the fused dual-FIR), so the
-whole transform is jit/vmap/grad-friendly, rides all backends, and
+Every pass is the lowpass-only :func:`conv.analysis_pass` (K=1), so
+the whole transform is jit/vmap/grad-friendly, rides all backends, and
 takes ``pad_fn`` for sharded halo rings.  The index semantics are
 core/conv.py's (periodic, centered).
 """
@@ -78,8 +77,6 @@ def starlet(x: jnp.ndarray, levels: int, *, ndim: int = 2, gen: int = 2,
         raise ValueError(f"gen must be 1 or 2, got {gen}")
     if ndim not in (1, 2, 3):
         raise ValueError(f"ndim must be 1, 2 or 3, got {ndim}")
-    if backend == "pallas":  # lowpass-only passes: no fused-kernel form
-        backend = "fma"
     arr, batch = _to_nc(x, ndim)
     details = []
     a = arr
@@ -101,8 +98,6 @@ def istarlet(coeffs: StarletCoeffs, *, ndim: int = 2, gen: int = 2,
         for w in coeffs.details:
             out = out + w
         return out
-    if backend == "pallas":
-        backend = "fma"
     a, batch = _to_nc(coeffs.approx, ndim)
     spatial = coeffs.approx.shape[-ndim:]
     for j in range(len(coeffs.details) - 1, -1, -1):

@@ -52,15 +52,15 @@ def main(argv=None) -> int:
     p.add_argument("--native", action="store_true",
                    help="use the C++ CPU engine instead of JAX")
     p.add_argument("--mode", default="periodization",
-                   help="boundary extension (round 5): periodization "
+                   help="boundary extension: periodization "
                         "(reference scheme) or any pywt mode — zero, "
                         "constant, symmetric, reflect, periodic, smooth, "
                         "antisymmetric, antireflect (DWT only)")
     p.add_argument("--precision", default="exact",
-                   choices=("exact", "mixed", "bf16"),
-                   help="compute mode (round 3): mixed = bf16x3 MXU "
-                        "(~1e-5 rel), bf16 = bf16 serving mode "
-                        "(bf16 details, f32 approximation chain)")
+                   choices=("exact", "bf16"),
+                   help="compute tier: exact = float32 at full "
+                        "precision, bf16 = bf16 arrays with float32 "
+                        "accumulation")
     p.add_argument("--interactive", action="store_true",
                    help="prompt for the configuration like the reference "
                         "demo does when run without arguments "
@@ -181,10 +181,7 @@ def main(argv=None) -> int:
     else:
         from pdwt_tpu import Wavelets
 
-        # first-class precision tiers (core/precision.py) — per-instance,
-        # nothing leaks into the caller's process
-        tier = {"exact": "exact", "mixed": "mixed",
-                "bf16": "bf16-fast"}[args.precision]
+        tier = {"exact": "exact", "bf16": "bf16-fast"}[args.precision]
         W = Wavelets(img, wname=args.wavelet, levels=args.levels,
                      do_swt=args.swt,
                      do_separable=not args.nonseparable,

@@ -1,13 +1,13 @@
 """Wavelet filter bank.
 
-A TPU-native re-design of the reference filter machinery:
+A re-design of the reference filter machinery:
 
 * the reference stores 288 hard-coded C arrays and a 72-entry registry
   (reference: src/filters.h:635-645, src/filters.cpp:5919-6002) and pushes
   the selected filters into CUDA ``__constant__`` memory
   (reference: src/separable.cu:48-51).  Here the public coefficient tables
   live in ``_data.npz`` and filters are plain numpy arrays that jitted
-  functions close over — XLA embeds them as compile-time constants, the TPU
+  functions close over — XLA embeds them as compile-time constants, the
   equivalent of constant memory.
 
 * name lookup is case-insensitive (reference: src/separable.cu:32-41 uses
@@ -19,7 +19,7 @@ A TPU-native re-design of the reference filter machinery:
 * custom filters: the reference caps user filters at 40 taps because of the
   constant-memory buffer (reference: src/common.h:15, src/wt.cu:562-565) and
   its own TODO list asks to lift that bound (reference: TODO.txt "Should
-  allow > 40 coeffs").  Nothing in the TPU design requires it — filters are
+  allow > 40 coeffs").  Nothing in this design requires it — filters are
   jit-time constants — so arbitrary lengths are accepted; MAX_FILTER_WIDTH
   is kept only as documentation of the reference's limit.
 """
@@ -112,10 +112,10 @@ _USER: Dict[str, Wavelet] = {}
 def _load_builtin() -> None:
     if _BUILTIN:
         return
+    # fill in one update, so a concurrent caller never sees a partial bank
     with np.load(_DATA_PATH) as data:
-        for name in data.files:
-            bank = data[name]
-            _BUILTIN[name] = Wavelet(name, bank[0], bank[1], bank[2], bank[3])
+        bank = {name: Wavelet(name, *data[name][:4]) for name in data.files}
+    _BUILTIN.update(bank)
 
 
 def list_wavelets() -> Tuple[str, ...]:
@@ -156,7 +156,7 @@ def make_custom_wavelet(
     set_filters_inverse, src/wt.cu:560-602).  Unlike the reference, which
     rejects filters longer than its 40-tap constant-memory buffer (and whose
     TODO.txt asks to lift that), any length is accepted here: filters are
-    jit-time constants on TPU."""
+    jit-time constants."""
     return Wavelet(name.lower(), dec_lo, dec_hi, rec_lo, rec_hi)
 
 
@@ -169,7 +169,7 @@ def register_wavelet(w: Wavelet) -> None:
 def modwt_wavelet(wav) -> Wavelet:
     """The MODWT-normalized bank of ``wav``: analysis filters scaled by
     1/sqrt(2), synthesis by sqrt(2) (perfect reconstruction is a pure
-    rescale, so every SWT path — all backends, fused kernels, sharding,
+    rescale, so every SWT path — all backends, sharding,
     3D — accepts the result unchanged).
 
     With this bank, :func:`~pdwt_tpu.core.separable.swt1d` & friends

@@ -14,8 +14,8 @@ Nesterov momentum — with no host synchronization at all.
 solve(op, y, ...) minimizes  ½‖op(x) − y‖² + λ‖W x‖₁  over images x,
 where ``op`` is any jittable linear operator (identity = denoising;
 a blur = deconvolution; a masked FFT = inpainting/CS-MRI, ...).
-The wavelet transform runs on the fused Pallas kernels on TPU and is
-differentiated via the analytic adjoint VJPs.
+The wavelet transform is linear, so JAX differentiates it exactly
+(the VJP of each filter pass is its adjoint).
 """
 from __future__ import annotations
 

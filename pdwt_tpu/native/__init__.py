@@ -1,7 +1,7 @@
 """ctypes bindings to the native CPU engine (cpp/pdwt_cpu.cpp).
 
 The native library is the double-accumulation CPU oracle and standalone
-CLI backend; the JAX engine is the TPU compute path.  The shared object
+CLI backend; the JAX engine is the device compute path.  The shared object
 is built on demand with the repo Makefile (g++; no pip deps).
 """
 from .lib import (

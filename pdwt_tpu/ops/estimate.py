@@ -78,7 +78,7 @@ def sure_thresholds(coeffs: Coeffs,
     minimize Stein's unbiased risk estimate
     ``SURE(t) = n·σ² − 2σ²·#{|d| ≤ t} + Σ min(d², t²)`` over the n+1
     candidate thresholds {0} ∪ {|d_i|} — an exact argmin via one sort +
-    cumsum per band (static shapes, MXU-free, jit/grad-safe).  With
+    cumsum per band (static shapes, jit/grad-safe).  With
     ``hybrid=True`` a band whose energy is too sparse for SURE to be
     reliable falls back to the universal threshold
     σ·sqrt(2 ln n) (the classic hybrid scheme).  Returns the same

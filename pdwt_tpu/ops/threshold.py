@@ -4,7 +4,7 @@ Functional equivalents of the reference threshold kernels + per-level host
 loops (reference: src/common.cu:13-198, 219-371).  Where the reference
 launches one CUDA kernel per subband per level, here the whole coefficient
 pytree is transformed in a single jitted program — XLA fuses everything
-into a few elementwise TPU kernels with no host round-trips.
+into a few elementwise device kernels with no host round-trips.
 
 Semantics notes (all mirrored from the reference):
 

@@ -2,9 +2,9 @@
 
 The core :mod:`pdwt_tpu.core.anisotropic` transform is ``ndim``
 independent passes of the batched-1D engine.  Sharding it spatially is
-therefore the 1D story applied per axis: each pass runs the fused local
-1D kernels on every shard with the periodic padding of the transformed
-axis substituted by the ring halo exchange (``ring_wrap_pad`` over ICI)
+therefore the 1D story applied per axis: each pass runs the batched-1D
+engine on every shard with the periodic padding of the transformed
+axis substituted by the ring halo exchange (``ring_wrap_pad``)
 when that axis is sharded — the other (possibly sharded) axes simply
 ride the batch dimension, with NO communication at all.
 
@@ -34,12 +34,7 @@ from ..core import separable as sep_core
 from ..core.anisotropic import _per_axis_levels, _unpack1d
 from ..filters import Wavelet
 from .halo import make_pad_fn
-from .sharded import (
-    _check_div,
-    _local_pallas_dwt1d,
-    _local_pallas_idwt1d,
-    _use_local_pallas,
-)
+from .sharded import _check_div
 
 Levels = Union[int, Sequence[int]]
 
@@ -101,15 +96,9 @@ def fs_dwt(x: jnp.ndarray, wav: Wavelet, levels: Levels, mesh: Mesh, *,
         msp = _moved(sp, ax)
         spec = P(*msp)
 
-        if _use_local_pallas(backend):
-            def local(xl, lv=lv, pad_fn=pad_fn):
-                return _local_pallas_dwt1d(xl, wav, lv, pad_fn)
-        else:
-            be = None if backend == "pallas" else backend
-
-            def local(xl, lv=lv, pad_fn=pad_fn, be=be):
-                return sep_core.dwt1d(xl, wav, lv, backend=be,
-                                      pad_fn=pad_fn)
+        def local(xl, lv=lv, pad_fn=pad_fn):
+            return sep_core.dwt1d(xl, wav, lv, backend=backend,
+                                  pad_fn=pad_fn)
 
         f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                           check_vma=False)
@@ -149,15 +138,9 @@ def fs_idwt(arr: jnp.ndarray, wav: Wavelet, shape: Sequence[int],
         msp = _moved(sp, ax)
         spec = P(*msp)
 
-        if _use_local_pallas(backend):
-            def local(cl, local_len=local_len, pad_fn=pad_fn):
-                return _local_pallas_idwt1d(cl, wav, local_len, pad_fn)
-        else:
-            be = None if backend == "pallas" else backend
-
-            def local(cl, local_len=local_len, pad_fn=pad_fn, be=be):
-                return sep_core.idwt1d(cl, wav, local_len, backend=be,
-                                       pad_fn=pad_fn)
+        def local(cl, local_len=local_len, pad_fn=pad_fn):
+            return sep_core.idwt1d(cl, wav, local_len, backend=backend,
+                                   pad_fn=pad_fn)
 
         f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                           check_vma=False)

@@ -2,12 +2,12 @@
 
 The reference is single-GPU: its periodic boundary handling is an index
 ``mod N`` inside each CUDA kernel (reference: src/separable.cu:111-121,
-src/nonseparable.cu:129-137).  When an axis is sharded across TPU chips,
+src/nonseparable.cu:129-137).  When an axis is sharded across devices,
 the rows/columns a convolution window needs beyond the local shard live
 on ring neighbors, and the periodic wrap is exactly the wrap of the
 device ring: the left pad of shard 0 comes from the tail of shard N-1.
 ``ring_wrap_pad`` implements this with ``lax.ppermute`` neighbor pushes
-over ICI; it is the drop-in ``pad_fn`` for the conv passes in
+(NCCL on GPUs); it is the drop-in ``pad_fn`` for the conv passes in
 :mod:`pdwt_tpu.core.conv`.
 
 Halo widths larger than the local shard (deep SWT levels, where the

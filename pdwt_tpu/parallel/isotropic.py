@@ -3,7 +3,7 @@
 The starlet is undecimated, so the sharding story is the SWT's: every
 spatial axis may be sharded (size % n_shards == 0), the B3 smoothing's
 periodic padding is substituted by the multi-hop ring halo exchange
-over ICI on sharded axes (``make_pad_fn``), and the detail planes come
+on sharded axes (``make_pad_fn``), and the detail planes come
 back with the input's sharding — bit-identical to the single-device
 :func:`pdwt_tpu.core.starlet.starlet`.  (The reference is single-GPU
 and has no isotropic transform; see SURVEY.md §2.2.)
@@ -36,7 +36,7 @@ def _spec(x_ndim: int, sd: int, data_axis, spatial_axes) -> P:
 def _pad_kw(sd: int, spatial_axes) -> dict:
     # make_pad_fn names the trailing conv dims (W=-1, H=-2, D=-3); for
     # ndim=1 the core adds a dummy row axis, so the single spatial axis
-    # is always the lane (-1) dim
+    # is always the last (-1) dim
     names = list(spatial_axes)
     kw = {"col_axis": names[-1]}
     if sd >= 2:
@@ -74,7 +74,7 @@ def starlet(x, levels: int, mesh: Mesh, *,
     _validate(x, mesh, sd, data_axis, spatial_axes)
     spec = _spec(x.ndim, sd, data_axis, spatial_axes)
     pad_fn = make_pad_fn(dict(mesh.shape), **_pad_kw(sd, spatial_axes))
-    be = "fma" if backend in (None, "pallas") else backend
+    be = backend or "fma"
 
     def local(xl):
         return _starlet_core(xl, levels, ndim=sd, gen=gen,
@@ -96,7 +96,7 @@ def istarlet(coeffs: StarletCoeffs, mesh: Mesh, *,
     _validate(a, mesh, sd, data_axis, spatial_axes)
     spec = _spec(a.ndim, sd, data_axis, spatial_axes)
     pad_fn = make_pad_fn(dict(mesh.shape), **_pad_kw(sd, spatial_axes))
-    be = "fma" if backend in (None, "pallas") else backend
+    be = backend or "fma"
 
     def local(cl):
         return _istarlet_core(cl, ndim=sd, gen=gen, backend=be,

@@ -13,8 +13,8 @@ def init_distributed(**kwargs) -> None:
     meshes over all chips (SURVEY.md §2.3).  Thin wrapper so applications
     don't import jax.distributed directly; no-op if already initialized.
 
-    On Cloud TPU the coordinator/process arguments are auto-detected; pass
-    ``coordinator_address=, num_processes=, process_id=`` elsewhere.
+    Pass ``coordinator_address=, num_processes=, process_id=`` unless a
+    cluster environment provides them.
     """
     try:
         jax.distributed.initialize(**kwargs)
@@ -31,9 +31,8 @@ def make_mesh(
 ) -> Mesh:
     """Build a mesh over the available devices.
 
-    ``shape`` entries of -1 are inferred (at most one).  Axis order puts
-    the fastest-varying (innermost, ICI-nearest) axis last, so halo
-    ppermutes over ``col``/``row`` ride neighbor links.
+    ``shape`` entries of -1 are inferred (at most one).  Devices fill
+    the mesh in ``jax.devices()`` order, the last axis varying fastest.
     """
     devices = list(devices if devices is not None else jax.devices())
     shape = list(shape)

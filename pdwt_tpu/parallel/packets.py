@@ -55,8 +55,6 @@ def wp2d(x: jnp.ndarray, wav: Wavelet, levels: int, mesh: Mesh, *,
                           backend=backend)
         a = c.approx
         h, v, d = c.details[0]
-        if a.dtype != h.dtype:  # bf16 MXU mode: f32 A-chain, bf16 details
-            a = a.astype(h.dtype)
         n, r, cc = a.shape[-3:]
         stk = jnp.stack([a, h, v, d], axis=-3)
         nodes.append(stk.reshape(batch + (4 * n, r, cc)))

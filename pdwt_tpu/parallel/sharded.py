@@ -2,16 +2,16 @@
 
 The reference is strictly single-device (reference: README.md:34 "one
 single GPU"; no NCCL/MPI anywhere).  This module is the new capability
-the TPU design adds: the same transform semantics executed SPMD over a
+this design adds: the same transform semantics executed SPMD over a
 ``jax.sharding.Mesh``, with
 
-* **data parallelism** — batch dims sharded over ``data_axis`` (the TPU
-  form of the reference's batched-1D "rows as batch" kernels,
+* **data parallelism** — batch dims sharded over ``data_axis`` (the
+  multi-device form of the reference's batched-1D "rows as batch" kernels,
   reference: src/separable.cu:213-236, generalized across chips);
 * **spatial parallelism** — image rows/columns sharded over
   ``row_axis``/``col_axis``; each conv pass exchanges periodic halos of
   width ``hlen-1`` (dilated: ``(hlen-1)·2^(level-1)`` for SWT) with ring
-  neighbors over ICI (see :mod:`pdwt_tpu.parallel.halo`) instead of the
+  neighbors (see :mod:`pdwt_tpu.parallel.halo`) instead of the
   reference's in-kernel ``mod N`` indexing.
 
 Decimated (DWT) transforms require every sharded spatial axis size to be
@@ -24,7 +24,7 @@ only be divisible by ``n_shards``.
 
 Norms over sharded coefficient pytrees need no special code: ``jit``
 lowers ``jnp.sum`` over sharded leaves to per-chip partials + an
-``all-reduce`` (the TPU analogue of the reference's per-subband cuBLAS
+``all-reduce`` (the analogue of the reference's per-subband cuBLAS
 asum loop, reference: src/wt.cu:398-418, without the host round-trips).
 """
 from __future__ import annotations
@@ -37,7 +37,6 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..core import conv
 from ..core import separable as sep_core
 from ..core.separable import Coeffs1D, Coeffs2D
 from ..filters import Wavelet
@@ -88,266 +87,6 @@ def _validate2d(x, mesh, data_axis, row_axis, col_axis, levels, swt):
 # 2D
 # ---------------------------------------------------------------------------
 
-def _use_local_pallas(backend: Optional[str]) -> bool:
-    if backend == "pallas":
-        return True
-    return backend is None and jax.default_backend() == "tpu"
-
-
-from ..core.separable import _bf16_outs as _norm_mxu_out
-from ..core.separable import _f32
-
-
-def _fwd_level_2d_local(a, wav, mode, pad_fn):
-    """One decimated 2D level on (B, r, c) with the ring pad_fn; returns
-    the raw 4 subbands (MXU banded-matmul / padded exact kernel / conv
-    fallback — the same per-level dispatch every local composition
-    shares)."""
-    from .. import kernels
-
-    r, c = a.shape[-2:]
-    res = None
-    if mode is not None:
-        res = kernels.fwd_level_2d_mxu(a, wav.dec_lo, wav.dec_hi,
-                                       mode, pad_fn=pad_fn)
-    if res is None:
-        af = _f32(a) if mode is not None else a
-        geo = (kernels.fwd_geometry(r, c, wav.hlen)
-               if af.dtype == jnp.float32 else None)
-        if geo is not None:
-            lo_r, lo_c, hi_r, hi_c = geo
-            tl = tuple(float(v) for v in wav.dec_lo)
-            th = tuple(float(v) for v in wav.dec_hi)
-            xp = pad_fn(af, -1, lo_c, hi_c)
-            xp = pad_fn(xp, -2, lo_r, hi_r)
-            res = kernels.fwd_level_2d_padded(xp, tl, th,
-                                              (r // 2, c // 2))
-        else:
-            dec = (wav.dec_lo, wav.dec_hi)
-            z = conv.analysis_pass(af[:, None], dec, axis=-1,
-                                   backend="fma", pad_fn=pad_fn)
-            z = conv.analysis_pass(z, dec, axis=-2, backend="fma",
-                                   pad_fn=pad_fn)
-            res = (z[:, 0], z[:, 1], z[:, 2], z[:, 3])
-    return res
-
-
-def _inv_level_2d_local(a, h, v, d, wav, mode, out_dt, pad_fn, out_rc):
-    """One decimated 2D inverse level on (B, mr, mc) subbands with the
-    ring pad_fn; returns (B, out_rc[0], out_rc[1]) in ``out_dt`` under
-    the MXU modes (f32 untouched otherwise).  Kernel outputs are
-    (B, 2mr, 2mc) and get cropped to ``out_rc`` — odd parent sizes round
-    up per the conv spec (shapes.div2), so out = 2m or 2m-1."""
-    from .. import kernels
-
-    mr, mc = a.shape[-2:]
-    y = None
-    if mode is not None:
-        y = kernels.inv_level_2d_mxu(a, h, v, d, wav.rec_lo,
-                                     wav.rec_hi, mode, out_dt,
-                                     pad_fn=pad_fn)
-        if y is not None:
-            y = y[..., :out_rc[0], :out_rc[1]]
-    if y is None:
-        if mode is not None:
-            a, h, v, d = _f32(a), _f32(h), _f32(v), _f32(d)
-        geo = (kernels.inv_geometry(mr, mc, wav.hlen)
-               if a.dtype == jnp.float32 else None)
-        if geo is not None:
-            lo_r, lo_c, hi_r, hi_c = geo
-            rl = tuple(float(x) for x in wav.rec_lo)
-            rh = tuple(float(x) for x in wav.rec_hi)
-
-            def pad2(arr):
-                arr = pad_fn(arr, -1, lo_c, hi_c)
-                return pad_fn(arr, -2, lo_r, hi_r)
-
-            y = kernels.inv_level_2d_padded(pad2(a), pad2(h), pad2(v),
-                                            pad2(d), rl, rh, (mr, mc))
-            y = y[..., :out_rc[0], :out_rc[1]]
-        else:
-            rec = (wav.rec_lo, wav.rec_hi)
-            z = jnp.concatenate([t[:, None] for t in (a, h, v, d)],
-                                axis=1)
-            t2 = conv.synthesis_pass(z, rec, axis=-2, out_len=out_rc[0],
-                                     backend="fma", pad_fn=pad_fn)
-            y = conv.synthesis_pass(t2, rec, axis=-1, out_len=out_rc[1],
-                                    backend="fma", pad_fn=pad_fn)[:, 0]
-        if mode is not None:
-            y = y.astype(out_dt)
-    return y
-
-
-def _local_pallas_dwt2d(xl, wav, levels, pad_fn):
-    """Per-level: ring-halo exchange the kernel's exact padding needs
-    (periodic support + DMA alignment margin), then run the fused Pallas
-    level kernel on the local shard.  MXU modes (bf16 arrays / mixed)
-    dispatch the banded-matmul kernels per shard — bf16 halos move half
-    the ICI traffic.  Falls back per level to the conv passes with the
-    same pad_fn when a local geometry is unsupported."""
-    from ..core.separable import _mxu_mode
-
-    batch = xl.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = xl.reshape((b,) + xl.shape[-2:])
-    mode = _mxu_mode(a.dtype)
-    norm = _norm_mxu_out(mode)
-    details = []
-    for _ in range(levels):
-        res = _fwd_level_2d_local(a, wav, mode, pad_fn)
-        a, h, v, d = norm(*res)
-        details.append(tuple(t.reshape(batch + t.shape[1:])
-                             for t in (h, v, d)))
-    return sep_core.Coeffs2D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _local_pallas_idwt2d(cl, wav, local_shape, pad_fn):
-    from ..core.separable import _mxu_mode
-
-    from ..core.shapes import level_sizes
-
-    levels = cl.levels
-    rows = level_sizes(local_shape[0], levels)
-    cols = level_sizes(local_shape[1], levels)
-    batch = cl.approx.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(cl.approx)
-    ddt = cl.details[-1][0].dtype if cl.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "bf16":
-        a = _f32(a)
-    for i in range(levels - 1, -1, -1):
-        h, v, d = (flat(t) for t in cl.details[i])
-        out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                  else jnp.float32)
-        a = _inv_level_2d_local(a, h, v, d, wav, mode, out_dt, pad_fn,
-                                (rows[i], cols[i]))
-    return a.reshape(batch + a.shape[1:])
-
-
-def _swt_fwd_level_2d_local(a, wav, lvl, mode, pad_fn):
-    """One à-trous 2D level on (B, r, c) with the ring pad_fn; returns
-    the raw 4 subbands (MXU / padded exact kernel / conv fallback)."""
-    from .. import kernels
-
-    r, c = a.shape[-2:]
-    res = None
-    if mode is not None:
-        res = kernels.swt_fwd_level_2d_mxu(a, wav.dec_lo, wav.dec_hi,
-                                           lvl, mode, pad_fn=pad_fn)
-    if res is None:
-        af = _f32(a) if mode is not None else a
-        geo = (kernels.swt_fwd_geometry(r, c, wav.hlen, lvl)
-               if af.dtype == jnp.float32 and wav.hlen % 2 == 0
-               else None)
-        if geo is not None:
-            lo_r, lo_c, hi_r, hi_c = geo
-            tl = tuple(float(v) for v in wav.dec_lo)
-            th = tuple(float(v) for v in wav.dec_hi)
-            xp = pad_fn(af, -1, lo_c, hi_c)
-            xp = pad_fn(xp, -2, lo_r, hi_r)
-            res = kernels.swt_fwd_level_2d_padded(xp, tl, th, lvl,
-                                                  (r, c))
-        else:
-            f = 1 << (lvl - 1)
-            dec = (wav.dec_lo, wav.dec_hi)
-            z = conv.analysis_pass(af[:, None], dec, axis=-1,
-                                   dilation=f, decimate=False,
-                                   backend="fma", pad_fn=pad_fn)
-            z = conv.analysis_pass(z, dec, axis=-2, dilation=f,
-                                   decimate=False, backend="fma",
-                                   pad_fn=pad_fn)
-            res = (z[:, 0], z[:, 1], z[:, 2], z[:, 3])
-    return res
-
-
-def _swt_inv_level_2d_local(a, h, v, d, wav, lvl, mode, out_dt, pad_fn):
-    """One à-trous 2D inverse level on (B, r, c) subbands with the ring
-    pad_fn (the kernels carry the ÷2-per-axis normalization)."""
-    from .. import kernels
-
-    r, c = a.shape[-2:]
-    y = None
-    if mode is not None:
-        y = kernels.swt_inv_level_2d_mxu(a, h, v, d, wav.rec_lo,
-                                         wav.rec_hi, lvl, mode,
-                                         out_dt, pad_fn=pad_fn)
-    if y is None:
-        if mode is not None:
-            a, h, v, d = _f32(a), _f32(h), _f32(v), _f32(d)
-        geo = (kernels.swt_inv_geometry(r, c, wav.hlen, lvl)
-               if a.dtype == jnp.float32 and wav.hlen % 2 == 0
-               else None)
-        if geo is not None:
-            lo_r, lo_c, hi_r, hi_c = geo
-            rl = tuple(float(x) for x in wav.rec_lo)
-            rh = tuple(float(x) for x in wav.rec_hi)
-
-            def pad2(arr):
-                arr = pad_fn(arr, -1, lo_c, hi_c)
-                return pad_fn(arr, -2, lo_r, hi_r)
-
-            y = kernels.swt_inv_level_2d_padded(pad2(a), pad2(h),
-                                                pad2(v), pad2(d), rl,
-                                                rh, lvl, (r, c))
-        else:
-            f = 1 << (lvl - 1)
-            rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-            z = jnp.concatenate([t[:, None] for t in (a, h, v, d)],
-                                axis=1)
-            t2 = conv.synthesis_pass(z, rec, axis=-2, dilation=f,
-                                     decimated=False, backend="fma",
-                                     pad_fn=pad_fn)
-            y = conv.synthesis_pass(t2, rec, axis=-1, dilation=f,
-                                    decimated=False, backend="fma",
-                                    pad_fn=pad_fn)[:, 0]
-        if mode is not None:
-            y = y.astype(out_dt)
-    return y
-
-
-def _local_pallas_swt2d(xl, wav, levels, pad_fn):
-    from ..core.separable import _mxu_mode
-
-    batch = xl.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = xl.reshape((b,) + xl.shape[-2:])
-    mode = _mxu_mode(a.dtype)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (core.separable)
-    norm = _norm_mxu_out(mode)
-    details = []
-    for lvl in range(1, levels + 1):
-        res = _swt_fwd_level_2d_local(a, wav, lvl, mode, pad_fn)
-        a, h, v, d = norm(*res)
-        details.append(tuple(t.reshape(batch + t.shape[1:])
-                             for t in (h, v, d)))
-    return sep_core.Coeffs2D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _local_pallas_iswt2d(cl, wav, pad_fn):
-    from ..core.separable import _mxu_mode
-
-    batch = cl.approx.shape[:-2]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(cl.approx)
-    ddt = cl.details[-1][0].dtype if cl.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (core.separable)
-    if mode == "bf16":
-        a = _f32(a)
-    for i in range(cl.levels - 1, -1, -1):
-        h, v, d = (flat(t) for t in cl.details[i])
-        out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                  else jnp.float32)
-        a = _swt_inv_level_2d_local(a, h, v, d, wav, i + 1, mode, out_dt,
-                                    pad_fn)
-    return a.reshape(batch + a.shape[1:])
-
-
 def dwt2d(x, wav: Wavelet, levels: int, mesh: Mesh, *,
           data_axis: Optional[str] = None, row_axis: Optional[str] = None,
           col_axis: Optional[str] = None, backend: Optional[str] = None,
@@ -357,19 +96,10 @@ def dwt2d(x, wav: Wavelet, levels: int, mesh: Mesh, *,
     spec = _spec2d(x.ndim, data_axis, row_axis, col_axis)
     pad_fn = make_pad_fn(dict(mesh.shape), row_axis, col_axis)
 
-    if _use_local_pallas(backend):
-        if swt:
-            def local(xl):
-                return _local_pallas_swt2d(xl, wav, levels, pad_fn)
-        else:
-            def local(xl):
-                return _local_pallas_dwt2d(xl, wav, levels, pad_fn)
-    else:
-        core = sep_core.swt2d if swt else sep_core.dwt2d
-        be = None if backend == "pallas" else backend
+    core = sep_core.swt2d if swt else sep_core.dwt2d
 
-        def local(xl):
-            return core(xl, wav, levels, backend=be, pad_fn=pad_fn)
+    def local(xl):
+        return core(xl, wav, levels, backend=backend, pad_fn=pad_fn)
 
     f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                       check_vma=False)
@@ -393,21 +123,11 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int],
     local_shape = (shape[0] // _axis_size(mesh, row_axis),
                    shape[1] // _axis_size(mesh, col_axis))
 
-    if _use_local_pallas(backend):
+    def local(cl):
         if swt:
-            def local(cl):
-                return _local_pallas_iswt2d(cl, wav, pad_fn)
-        else:
-            def local(cl):
-                return _local_pallas_idwt2d(cl, wav, local_shape, pad_fn)
-    else:
-        be = None if backend == "pallas" else backend
-
-        def local(cl):
-            if swt:
-                return sep_core.iswt2d(cl, wav, backend=be, pad_fn=pad_fn)
-            return sep_core.idwt2d(cl, wav, local_shape, backend=be,
-                                   pad_fn=pad_fn)
+            return sep_core.iswt2d(cl, wav, backend=backend, pad_fn=pad_fn)
+        return sep_core.idwt2d(cl, wav, local_shape, backend=backend,
+                               pad_fn=pad_fn)
 
     f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                       check_vma=False)
@@ -438,183 +158,6 @@ def _pad1d(pad_fn, arr, lo, hi):
     return pad_fn(arr, -1, lo, hi)
 
 
-def _local_pallas_dwt1d(xl, wav, levels, pad_fn):
-    """Sharded batched-1D fast path: ring-halo exchange the kernel's
-    exact padding, then the fused 1D Pallas kernel on the local shard
-    (reference batched-1D: src/separable.cu:213-236)."""
-    from .. import kernels
-
-    from ..core.separable import _mxu_mode
-
-    a, batch = _flat1d(xl)
-    dec = (wav.dec_lo, wav.dec_hi)
-    tl = tuple(float(v) for v in wav.dec_lo)
-    th = tuple(float(v) for v in wav.dec_hi)
-    mode = _mxu_mode(a.dtype)
-    details = []
-    for _ in range(levels):
-        bsz, n = a.shape
-        res = None
-        if mode is not None:
-            res = kernels.fwd_level_1d_mxu(a, wav.dec_lo, wav.dec_hi,
-                                           mode, pad_fn=pad_fn)
-        if res is None:
-            af = _f32(a) if mode is not None else a
-            geo = (kernels.fwd1d_geometry(bsz, n, wav.hlen)
-                   if af.dtype == jnp.float32 else None)
-            if geo is not None:
-                cen, hi_c = geo
-                xp = _pad1d(pad_fn, af, cen, hi_c)
-                res = kernels.fwd_level_1d_padded(xp, tl, th, n // 2)
-            else:
-                z = conv.analysis_pass(af[:, None, None], dec, axis=-1,
-                                       backend="fma", pad_fn=pad_fn)
-                res = (z[:, 0, 0], z[:, 1, 0])
-            if mode == "bf16":
-                res = (res[0].astype(jnp.float32),
-                       res[1].astype(jnp.bfloat16))
-        a, d = res
-        details.append(d.reshape(batch + d.shape[1:]))
-    return Coeffs1D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _local_pallas_idwt1d(cl, wav, local_len, pad_fn):
-    from .. import kernels
-
-    levels = cl.levels
-    sizes = [local_len >> k for k in range(levels + 1)]
-    rec = (wav.rec_lo, wav.rec_hi)
-    rl = tuple(float(v) for v in wav.rec_lo)
-    rh = tuple(float(v) for v in wav.rec_hi)
-    from ..core.separable import _mxu_mode
-
-    a, batch = _flat1d(cl.approx)
-    ddt = cl.details[-1].dtype if cl.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "bf16":
-        a = _f32(a)
-    for i in range(levels - 1, -1, -1):
-        d, _ = _flat1d(cl.details[i])
-        bsz, m = a.shape
-        y = None
-        if mode is not None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y = kernels.inv_level_1d_mxu(a, d, wav.rec_lo, wav.rec_hi,
-                                         mode, out_dt, pad_fn=pad_fn)
-        if y is None:
-            if mode is not None:
-                a, d = _f32(a), _f32(d)
-            geo = (kernels.inv1d_geometry(bsz, m, wav.hlen)
-                   if a.dtype == jnp.float32 else None)
-            if geo is not None:
-                lo_pad, hi_c = geo
-                y = kernels.inv_level_1d_padded(
-                    _pad1d(pad_fn, a, lo_pad, hi_c),
-                    _pad1d(pad_fn, d, lo_pad, hi_c), rl, rh, m)
-            else:
-                z = jnp.concatenate([a[:, None, None], d[:, None, None]],
-                                    axis=1)
-                y = conv.synthesis_pass(z, rec, axis=-1, out_len=sizes[i],
-                                        backend="fma",
-                                        pad_fn=pad_fn)[:, 0, 0]
-            if mode == "bf16" and i == 0:
-                y = y.astype(jnp.bfloat16)
-        a = y
-    return a.reshape(batch + a.shape[1:])
-
-
-def _local_pallas_swt1d(xl, wav, levels, pad_fn):
-    from .. import kernels
-
-    from ..core.separable import _mxu_mode
-
-    a, batch = _flat1d(xl)
-    dec = (wav.dec_lo, wav.dec_hi)
-    tl = tuple(float(v) for v in wav.dec_lo)
-    th = tuple(float(v) for v in wav.dec_hi)
-    mode = _mxu_mode(a.dtype)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (core.separable)
-    details = []
-    for lvl in range(1, levels + 1):
-        bsz, n = a.shape
-        res = None
-        if mode is not None:
-            res = kernels.swt_fwd_level_1d_mxu(a, wav.dec_lo, wav.dec_hi,
-                                               lvl, mode, pad_fn=pad_fn)
-        if res is None:
-            af = _f32(a) if mode is not None else a
-            geo = (kernels.swt1d_fwd_geometry(bsz, n, wav.hlen, lvl)
-                   if af.dtype == jnp.float32 and wav.hlen % 2 == 0
-                   else None)
-            if geo is not None:
-                cen, hi_c = geo
-                xp = _pad1d(pad_fn, af, cen, hi_c)
-                res = kernels.swt_fwd_level_1d_padded(xp, tl, th, lvl, n)
-            else:
-                f = 1 << (lvl - 1)
-                z = conv.analysis_pass(af[:, None, None], dec, axis=-1,
-                                       dilation=f, decimate=False,
-                                       backend="fma", pad_fn=pad_fn)
-                res = (z[:, 0, 0], z[:, 1, 0])
-            if mode == "bf16":
-                res = (res[0].astype(jnp.float32),
-                       res[1].astype(jnp.bfloat16))
-        a, d = res
-        details.append(d.reshape(batch + d.shape[1:]))
-    return Coeffs1D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _local_pallas_iswt1d(cl, wav, pad_fn):
-    from .. import kernels
-
-    rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-    rl = tuple(float(v) for v in wav.rec_lo)
-    rh = tuple(float(v) for v in wav.rec_hi)
-    from ..core.separable import _mxu_mode
-
-    a, batch = _flat1d(cl.approx)
-    ddt = cl.details[-1].dtype if cl.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (core.separable)
-    if mode == "bf16":
-        a = _f32(a)
-    for i in range(cl.levels - 1, -1, -1):
-        d, _ = _flat1d(cl.details[i])
-        bsz, n = a.shape
-        y = None
-        if mode is not None:
-            out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                      else jnp.float32)
-            y = kernels.swt_inv_level_1d_mxu(a, d, wav.rec_lo, wav.rec_hi,
-                                             i + 1, mode, out_dt,
-                                             pad_fn=pad_fn)
-        if y is None:
-            if mode is not None:
-                a, d = _f32(a), _f32(d)
-            geo = (kernels.swt1d_inv_geometry(bsz, n, wav.hlen, i + 1)
-                   if a.dtype == jnp.float32 and wav.hlen % 2 == 0
-                   else None)
-            if geo is not None:
-                cen, hi_c = geo
-                y = kernels.swt_inv_level_1d_padded(
-                    _pad1d(pad_fn, a, cen, hi_c),
-                    _pad1d(pad_fn, d, cen, hi_c), rl, rh, i + 1, n)
-            else:
-                f = 1 << i
-                z = jnp.concatenate([a[:, None, None], d[:, None, None]],
-                                    axis=1)
-                y = conv.synthesis_pass(z, rec, axis=-1, dilation=f,
-                                        decimated=False, backend="fma",
-                                        pad_fn=pad_fn)[:, 0, 0]
-            if mode == "bf16" and i == 0:
-                y = y.astype(jnp.bfloat16)
-        a = y
-    return a.reshape(batch + a.shape[1:])
-
-
 def dwt1d(x, wav: Wavelet, levels: int, mesh: Mesh, *,
           data_axis: Optional[str] = None, col_axis: Optional[str] = None,
           backend: Optional[str] = None, swt: bool = False) -> Coeffs1D:
@@ -625,19 +168,10 @@ def dwt1d(x, wav: Wavelet, levels: int, mesh: Mesh, *,
     spec = _spec1d(x.ndim, data_axis, col_axis)
     pad_fn = make_pad_fn(dict(mesh.shape), None, col_axis)
 
-    if _use_local_pallas(backend):
-        if swt:
-            def local(xl):
-                return _local_pallas_swt1d(xl, wav, levels, pad_fn)
-        else:
-            def local(xl):
-                return _local_pallas_dwt1d(xl, wav, levels, pad_fn)
-    else:
-        core = sep_core.swt1d if swt else sep_core.dwt1d
-        be = None if backend == "pallas" else backend
+    core = sep_core.swt1d if swt else sep_core.dwt1d
 
-        def local(xl):
-            return core(xl, wav, levels, backend=be, pad_fn=pad_fn)
+    def local(xl):
+        return core(xl, wav, levels, backend=backend, pad_fn=pad_fn)
 
     f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                       check_vma=False)
@@ -655,21 +189,11 @@ def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, mesh: Mesh, *,
     pad_fn = make_pad_fn(dict(mesh.shape), None, col_axis)
     local_len = length // _axis_size(mesh, col_axis)
 
-    if _use_local_pallas(backend):
+    def local(cl):
         if swt:
-            def local(cl):
-                return _local_pallas_iswt1d(cl, wav, pad_fn)
-        else:
-            def local(cl):
-                return _local_pallas_idwt1d(cl, wav, local_len, pad_fn)
-    else:
-        be = None if backend == "pallas" else backend
-
-        def local(cl):
-            if swt:
-                return sep_core.iswt1d(cl, wav, backend=be, pad_fn=pad_fn)
-            return sep_core.idwt1d(cl, wav, local_len, backend=be,
-                                   pad_fn=pad_fn)
+            return sep_core.iswt1d(cl, wav, backend=backend, pad_fn=pad_fn)
+        return sep_core.idwt1d(cl, wav, local_len, backend=backend,
+                               pad_fn=pad_fn)
 
     f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                       check_vma=False)
@@ -713,124 +237,6 @@ def _validate3d(x, mesh, data_axis, dep_axis, row_axis, col_axis, levels,
             _check_div(name, x.shape[dim], mesh.shape[ax], levels, swt)
 
 
-def _local_pallas_dwt3d(xl, wav, levels, pad_fn):
-    """Sharded-3D fast path: ring halo exchange feeding the fused 2D
-    level kernels (MXU banded-matmul under the precision modes) with
-    depth as batch, then the fma depth pass over the depth ring
-    (core._depth_split with the ring pad_fn)."""
-    from ..core.separable import _mxu_mode
-    from ..core.separable3d import Coeffs3D, _depth_split
-
-    batch = xl.shape[:-3]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = xl.reshape((b,) + xl.shape[-3:])
-    mode = _mxu_mode(a.dtype)
-    norm = _norm_mxu_out(mode)
-    details = []
-    for _ in range(levels):
-        dd, r, c = a.shape[-3:]
-        res = _fwd_level_2d_local(a.reshape(b * dd, r, c), wav, mode,
-                                  pad_fn)
-        res = norm(*res)  # f32 A / bf16 details before the depth pass
-        bands = _depth_split(res, wav, b, dd, mode=mode, pad_fn=pad_fn)
-        a = bands[0]
-        details.append(tuple(t.reshape(batch + t.shape[1:])
-                             for t in bands[1:]))
-    return Coeffs3D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _local_pallas_idwt3d(cl, wav, local_shape, pad_fn):
-    """Inverse via the depth-bit regrouping (two fused 2D inverses per
-    level + the depth synthesis over the ring) — the shared
-    core._inv_level_3d_regrouped with this module's per-shard 2D level
-    dispatch and the depth halo ring."""
-    from ..core.separable import _mxu_mode
-    from ..core.separable3d import _inv_level_3d_regrouped
-    from ..core.shapes import level_sizes
-
-    levels = cl.levels
-    deps = level_sizes(local_shape[0], levels)
-    rows = level_sizes(local_shape[1], levels)
-    cols = level_sizes(local_shape[2], levels)
-    batch = cl.approx.shape[:-3]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(cl.approx)
-    ddt = cl.details[-1][0].dtype if cl.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "bf16":
-        a = _f32(a)
-    for i in range(levels - 1, -1, -1):
-        bands = [flat(t) for t in cl.details[i]]
-        out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                  else jnp.float32)
-
-        def inv2d(a2, h2, v2, d2, _i=i):
-            return _inv_level_2d_local(a2, h2, v2, d2, wav, mode,
-                                       jnp.float32, pad_fn,
-                                       (rows[_i], cols[_i]))
-
-        y = _inv_level_3d_regrouped(a, bands, b, a.shape[-3], inv2d, wav,
-                                    out_dep=deps[i], pad_fn=pad_fn)
-        a = y.astype(out_dt)
-    return a.reshape(batch + a.shape[1:])
-
-
-def _local_pallas_swt3d(xl, wav, levels, pad_fn):
-    from ..core.separable import _mxu_mode
-    from ..core.separable3d import Coeffs3D, _depth_split
-
-    batch = xl.shape[:-3]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = xl.reshape((b,) + xl.shape[-3:])
-    mode = _mxu_mode(a.dtype)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (core.separable)
-    norm = _norm_mxu_out(mode)
-    details = []
-    for lvl in range(1, levels + 1):
-        dd, r, c = a.shape[-3:]
-        res = _swt_fwd_level_2d_local(a.reshape(b * dd, r, c), wav, lvl,
-                                      mode, pad_fn)
-        res = norm(*res)
-        bands = _depth_split(res, wav, b, dd, dilation=1 << (lvl - 1),
-                             decimate=False, mode=mode, pad_fn=pad_fn)
-        a = bands[0]
-        details.append(tuple(t.reshape(batch + t.shape[1:])
-                             for t in bands[1:]))
-    return Coeffs3D(a.reshape(batch + a.shape[1:]), tuple(details))
-
-
-def _local_pallas_iswt3d(cl, wav, pad_fn):
-    from ..core.separable import _mxu_mode
-
-    levels = cl.levels
-    batch = cl.approx.shape[:-3]
-    b = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    flat = lambda t: t.reshape((b,) + t.shape[len(batch):])
-    a = flat(cl.approx)
-    ddt = cl.details[-1][0].dtype if cl.details else a.dtype
-    mode = _mxu_mode(ddt)
-    if mode == "mixed":
-        mode = None  # exact SWT kernels beat b3 (core.separable)
-    if mode == "bf16":
-        a = _f32(a)
-    from ..core.separable3d import _inv_level_3d_regrouped
-    for i in range(levels - 1, -1, -1):
-        bands = [flat(t) for t in cl.details[i]]
-        out_dt = (jnp.bfloat16 if (mode == "bf16" and i == 0)
-                  else jnp.float32)
-
-        def inv2d(a2, h2, v2, d2, _i=i):
-            return _swt_inv_level_2d_local(a2, h2, v2, d2, wav, _i + 1,
-                                           mode, jnp.float32, pad_fn)
-
-        y = _inv_level_3d_regrouped(a, bands, b, a.shape[-3], inv2d, wav,
-                                    swt_level=i + 1, pad_fn=pad_fn)
-        a = y.astype(out_dt)
-    return a.reshape(batch + a.shape[1:])
-
-
 def dwt3d(x, wav: Wavelet, levels: int, mesh: Mesh, *,
           data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
           row_axis: Optional[str] = None, col_axis: Optional[str] = None,
@@ -843,19 +249,10 @@ def dwt3d(x, wav: Wavelet, levels: int, mesh: Mesh, *,
     spec = _spec3d(x.ndim, data_axis, dep_axis, row_axis, col_axis)
     pad_fn = make_pad_fn(dict(mesh.shape), row_axis, col_axis, dep_axis)
 
-    if _use_local_pallas(backend):
-        if swt:
-            def local(xl):
-                return _local_pallas_swt3d(xl, wav, levels, pad_fn)
-        else:
-            def local(xl):
-                return _local_pallas_dwt3d(xl, wav, levels, pad_fn)
-    else:
-        core = sep3.swt3d if swt else sep3.dwt3d
-        be = None if backend == "pallas" else backend
+    core = sep3.swt3d if swt else sep3.dwt3d
 
-        def local(xl):
-            return core(xl, wav, levels, backend=be, pad_fn=pad_fn)
+    def local(xl):
+        return core(xl, wav, levels, backend=backend, pad_fn=pad_fn)
 
     f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                       check_vma=False)
@@ -883,21 +280,11 @@ def idwt3d(coeffs, wav: Wavelet, shape: Tuple[int, int, int], mesh: Mesh, *,
                    shape[1] // _axis_size(mesh, row_axis),
                    shape[2] // _axis_size(mesh, col_axis))
 
-    if _use_local_pallas(backend):
+    def local(cl):
         if swt:
-            def local(cl):
-                return _local_pallas_iswt3d(cl, wav, pad_fn)
-        else:
-            def local(cl):
-                return _local_pallas_idwt3d(cl, wav, local_shape, pad_fn)
-    else:
-        be = None if backend == "pallas" else backend
-
-        def local(cl):
-            if swt:
-                return sep3.iswt3d(cl, wav, backend=be, pad_fn=pad_fn)
-            return sep3.idwt3d(cl, wav, local_shape, backend=be,
-                               pad_fn=pad_fn)
+            return sep3.iswt3d(cl, wav, backend=backend, pad_fn=pad_fn)
+        return sep3.idwt3d(cl, wav, local_shape, backend=backend,
+                           pad_fn=pad_fn)
 
     f = jax.shard_map(local, mesh=mesh, in_specs=spec, out_specs=spec,
                       check_vma=False)
@@ -946,8 +333,7 @@ def dwt2d_ns(x, quads, levels: int, mesh: Mesh, *,
 
     _validate2d(x, mesh, data_axis, row_axis, col_axis, levels, swt)
     spec = _spec2d(x.ndim, data_axis, row_axis, col_axis)
-    # data-axis-only sharding needs no halo exchange: pad_fn=None keeps
-    # the MXU kernels eligible per shard
+    # data-axis-only sharding needs no halo exchange
     pad_fn = (make_pad_fn(dict(mesh.shape), row_axis, col_axis)
               if (row_axis is not None or col_axis is not None) else None)
     core = ns_core.swt2d_ns if swt else ns_core.dwt2d_ns

@@ -22,8 +22,8 @@ _BF16 = np.dtype(ml_dtypes.bfloat16)
 
 def _pack(data: dict, key: str, arr) -> None:
     # npz has no bfloat16 descriptor (it would silently round-trip as
-    # raw void bytes); store as uint16 with a dtype tag instead.  The
-    # bf16 serving mode's detail subbands hit this (round 3).
+    # raw void bytes); store as uint16 with a dtype tag instead.  Every
+    # subband of the bf16-fast tier hits this.
     a = np.asarray(arr)
     if a.dtype == _BF16:
         data[key] = a.view(np.uint16)

@@ -178,30 +178,6 @@ def test_3d_gradients(rng):
                                rtol=0, atol=1e-4)
 
 
-@pytest.mark.slow
-def test_3d_pallas_composition_interpret(rng, monkeypatch):
-    """backend="pallas" (fused 2D level kernel + fma depth pass) matches
-    the fma composition bit-for-bit-ish in interpret mode."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
-    w = get_wavelet("db4")
-    shape = (8, 32, 256)
-    x = jnp.asarray(rng.standard_normal(shape), jnp.float32)
-    ref = S3.dwt3d(x, w, 2, backend="fma")
-    c = S3.dwt3d(x, w, 2, backend="pallas")
-    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(c)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=0, atol=1e-5)
-    y = S3.idwt3d(c, w, shape, backend="pallas")
-    assert float(jnp.abs(y - x).max()) < 1e-5
-    cs = S3.swt3d(x, w, 2, backend="pallas")
-    refs = S3.swt3d(x, w, 2, backend="fma")
-    for a, b in zip(jax.tree.leaves(refs), jax.tree.leaves(cs)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=0, atol=1e-5)
-    ys = S3.iswt3d(cs, w, backend="pallas")
-    assert float(jnp.abs(ys - x).max()) < 1e-5
-
-
 def test_3d_checkpoint_roundtrip(rng, tmp_path):
     from pdwt_tpu.utils import checkpoint as ckpt
 
@@ -290,16 +266,17 @@ def test_3d_validate_coeffs(rng):
 
 
 def test_3d_pallas_rejects_pad_fn(rng):
-    """Explicit pallas + pad_fn must error (the composition cannot honor
-    a custom boundary), matching the 2D engines."""
+    """backend="pallas" is an unknown backend, with or without a
+    pad_fn, matching the 2D engines."""
     from pdwt_tpu.core import conv
 
     w = get_wavelet("db2")
     x = _vol(rng, (8, 8, 16)).astype(jnp.float32)
-    with pytest.raises(ValueError, match="pad_fn"):
-        S3.dwt3d(x, w, 1, backend="pallas", pad_fn=conv.wrap_pad)
-    with pytest.raises(ValueError, match="pad_fn"):
-        S3.swt3d(x, w, 1, backend="pallas", pad_fn=conv.wrap_pad)
+    for pad_fn in (None, conv.wrap_pad):
+        with pytest.raises(ValueError, match="unknown backend"):
+            S3.dwt3d(x, w, 1, backend="pallas", pad_fn=pad_fn)
+        with pytest.raises(ValueError, match="unknown backend"):
+            S3.swt3d(x, w, 1, backend="pallas", pad_fn=pad_fn)
 
 
 def test_3d_denoise_step(rng):
@@ -319,83 +296,38 @@ def test_3d_denoise_step(rng):
         assert float(jnp.abs(out0 - vol).max()) < 1e-5
 
 
-@pytest.mark.slow
-def test_3d_mxu_modes_interpret(rng, monkeypatch):
-    """3D precision modes (interpret mode): mixed = bf16x3 MXU compute
-    on f32 arrays; bf16 arrays = f32 A-chain + bf16 details with the
-    inverse regrouped by the depth bit (two 2D MXU inverses + depth
-    synthesis — synthesis passes on independent axes commute)."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
-    w = get_wavelet("db4")
-    shape = (8, 64, 256)
-    x = jnp.asarray(rng.uniform(0, 255, shape), jnp.float32)
-
-    monkeypatch.setenv("PDWT_TPU_PRECISION", "mixed")
-    c = S3.dwt3d(x, w, 2, backend="pallas")
-    assert all(t.dtype == jnp.float32 for t in jax.tree.leaves(c))
-    y = S3.idwt3d(c, w, shape, backend="pallas")
-    err = float(jnp.abs(y - x).max())
-    assert err < 0.05, err  # bf16x3 ~ 1e-5 rel on [0,255]
-    monkeypatch.delenv("PDWT_TPU_PRECISION")
-
-    xb = x.astype(jnp.bfloat16)
-    cb = S3.dwt3d(xb, w, 2, backend="pallas")
-    assert cb.approx.dtype == jnp.float32          # f32 A-chain
-    assert cb.details[0][0].dtype == jnp.bfloat16  # bf16 details
-    yb = S3.idwt3d(cb, w, shape, backend="pallas")
-    assert yb.dtype == jnp.bfloat16
-    errb = float(jnp.abs(yb.astype(jnp.float32) - x).max())
-    assert errb < 8.0, errb  # bf16 storage floor class (2D 5-level: 4.5)
-
-    # SWT bf16 (mixed routes to exact like 2D)
-    csb = S3.swt3d(xb, w, 2, backend="pallas")
-    assert csb.approx.dtype == jnp.float32
-    assert csb.details[0][0].dtype == jnp.bfloat16
-    ysb = S3.iswt3d(csb, w, backend="pallas")
-    assert ysb.dtype == jnp.bfloat16
-    errs = float(jnp.abs(ysb.astype(jnp.float32) - x).max())
-    assert errs < 8.0, errs
-
-
-def test_3d_mxu_fallback_small_shapes(rng, monkeypatch):
-    """Geometries the MXU tiles reject fall back (exact kernels / fma)
-    while keeping the mode's dtype contract."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
+def test_3d_mxu_fallback_small_shapes(rng):
+    """bf16 volumes (the bf16-fast tier) keep bf16 storage for every
+    subband and the reconstruction, on both formulations, within the
+    bf16 storage floor on [0, 255] data."""
     w = get_wavelet("db2")
-    shape = (4, 16, 16)  # far below any MXU tile
+    shape = (4, 16, 16)
     x = jnp.asarray(rng.uniform(0, 255, shape), jnp.float32)
     xb = x.astype(jnp.bfloat16)
-    cb = S3.dwt3d(xb, w, 1, backend="pallas")
-    assert cb.approx.dtype == jnp.float32
-    assert cb.details[0][0].dtype == jnp.bfloat16
-    yb = S3.idwt3d(cb, w, shape, backend="pallas")
-    assert yb.dtype == jnp.bfloat16
-    assert float(jnp.abs(yb.astype(jnp.float32) - x).max()) < 8.0
+    for be in ("xla", "fma"):
+        cb = S3.dwt3d(xb, w, 1, backend=be)
+        assert all(t.dtype == jnp.bfloat16 for t in jax.tree.leaves(cb))
+        yb = S3.idwt3d(cb, w, shape, backend=be)
+        assert yb.dtype == jnp.bfloat16
+        assert float(jnp.abs(yb.astype(jnp.float32) - x).max()) < 8.0
 
 
 @pytest.mark.slow
-def test_3d_iswt_denoise_fused_matches_unfused(rng, monkeypatch):
-    """iswt3d_denoise (fused threshold-in-inverse via the depth-bit
-    regrouping; daa pre-thresholded in the hi group's a-slot) equals
-    threshold-then-iswt3d, for f32 and bf16, soft and hard; and it is
-    differentiable (the kernels carry custom VJPs)."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
+def test_3d_iswt_denoise_fused_matches_unfused(rng):
+    """iswt3d_denoise equals threshold-then-iswt3d, for f32 and bf16,
+    soft, hard and garrote; and it is differentiable."""
     w = get_wavelet("db4")
     shape = (8, 64, 256)
     x = jnp.asarray(rng.uniform(0, 255, shape), jnp.float32)
     for dt in (jnp.float32, jnp.bfloat16):
-        c = S3.swt3d(x.astype(dt), w, 2, backend="pallas")
-        # bf16: the fused kernels threshold at f32 precision while the
-        # unfused ops path thresholds the stored bf16 values — a
-        # |x|·2^-8 rounding-order difference, not an inequality.
+        c = S3.swt3d(x.astype(dt), w, 2)
         tol = 1e-3 if dt == jnp.float32 else 3.0
         for mode in ("soft", "hard", "garrote"):
             thr = {"soft": ops.soft_threshold,
                    "hard": ops.hard_threshold,
                    "garrote": ops.garrote_threshold}[mode]
-            slow = S3.iswt3d(thr(c, 5.0), w, backend="pallas")
-            fast = S3.iswt3d_denoise(c, w, 5.0, mode=mode,
-                                     backend="pallas")
+            slow = S3.iswt3d(thr(c, 5.0), w)
+            fast = S3.iswt3d_denoise(c, w, 5.0, mode=mode)
             assert fast.dtype == slow.dtype
             err = float(jnp.abs(fast.astype(jnp.float32)
                                 - slow.astype(jnp.float32)).max())
@@ -403,8 +335,8 @@ def test_3d_iswt_denoise_fused_matches_unfused(rng, monkeypatch):
 
     # differentiable end-to-end
     def loss(v):
-        c = S3.swt3d(v, w, 1, backend="pallas")
-        y = S3.iswt3d_denoise(c, w, 2.0, backend="pallas")
+        c = S3.swt3d(v, w, 1)
+        y = S3.iswt3d_denoise(c, w, 2.0)
         return jnp.sum(y * y)
 
     g = jax.grad(loss)(x[:4, :32, :128])
@@ -443,57 +375,3 @@ def test_auto_denoise_3d(rng):
         assert mse_d < bound * mse_n, (method, mse_d, mse_n)
     with pytest.raises(ValueError):
         auto_denoise_3d(noisy, "db2", 2, method="nope")
-
-
-def test_depth_matmul_matches_conv(rng, monkeypatch):
-    """core/depth_matmul.py (MXU banded-matrix depth pass) equals the
-    conv passes for all four variants — decimated/à-trous analysis and
-    synthesis, odd depths, dilations — and PDWT_TPU_DEPTH_MM=0 routes
-    the pallas composition back to the fma formulation unchanged."""
-    from pdwt_tpu.core import conv
-    from pdwt_tpu.core.depth_matmul import (depth_analysis_mm,
-                                            depth_synthesis_mm)
-
-    w = get_wavelet("db7")
-    for d in (16, 17):
-        x = jnp.asarray(rng.standard_normal((2, 3, d, 4, 8)), jnp.float32)
-        ref = conv.analysis_pass(x, (w.dec_lo, w.dec_hi), axis=-3,
-                                 backend="gather")
-        got = depth_analysis_mm(x, (w.dec_lo, w.dec_hi))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=0, atol=1e-5)
-        for f in (1, 2, 4):
-            r2 = conv.analysis_pass(x, (w.dec_lo, w.dec_hi), axis=-3,
-                                    dilation=f, decimate=False,
-                                    backend="gather")
-            g2 = depth_analysis_mm(x, (w.dec_lo, w.dec_hi), dilation=f,
-                                   decimate=False)
-            np.testing.assert_allclose(np.asarray(g2), np.asarray(r2),
-                                       rtol=0, atol=1e-5)
-            z2 = jnp.asarray(rng.standard_normal((2, 8, d, 4, 8)),
-                             jnp.float32)
-            r4 = conv.synthesis_pass(z2, (w.rec_lo * .5, w.rec_hi * .5),
-                                     axis=-3, dilation=f, decimated=False,
-                                     backend="gather")
-            g4 = depth_synthesis_mm(z2, (w.rec_lo * .5, w.rec_hi * .5),
-                                    out_len=d, dilation=f, decimated=False)
-            np.testing.assert_allclose(np.asarray(g4), np.asarray(r4),
-                                       rtol=0, atol=1e-5)
-        m = (d + 1) // 2
-        z = jnp.asarray(rng.standard_normal((2, 6, m, 4, 8)), jnp.float32)
-        r3 = conv.synthesis_pass(z, (w.rec_lo, w.rec_hi), axis=-3,
-                                 out_len=d, backend="gather")
-        g3 = depth_synthesis_mm(z, (w.rec_lo, w.rec_hi), out_len=d)
-        np.testing.assert_allclose(np.asarray(g3), np.asarray(r3),
-                                   rtol=0, atol=1e-5)
-
-    # composition toggle: mm on (default) vs off = same coefficients
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
-    x = jnp.asarray(rng.standard_normal((8, 32, 256)), jnp.float32)
-    w4 = get_wavelet("db4")
-    c_on = S3.swt3d(x, w4, 2, backend="pallas")
-    monkeypatch.setenv("PDWT_TPU_DEPTH_MM", "0")
-    c_off = S3.swt3d(x, w4, 2, backend="pallas")
-    for a, b in zip(jax.tree.leaves(c_on), jax.tree.leaves(c_off)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=0, atol=1e-5)

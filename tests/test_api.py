@@ -2,6 +2,7 @@
 custom filters, cycle spinning — API parity with the reference class."""
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -282,22 +283,24 @@ def test_circshift_not_inplace(rng):
                           np.roll(before, (3, 5), (0, 1)))
 
 
-def test_facade_bf16_mode(rng, monkeypatch):
-    """Stateful facade end-to-end in the bf16 serving mode (pallas
-    interpret): forward returns an f32 approximation chain with bf16
-    details; threshold, set_coeff, and inverse respect the dtype
-    contract."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
+def test_facade_bf16_mode(rng):
+    """Stateful facade end-to-end in the bf16-fast tier: every subband
+    (approximation included) and the reconstruction are bf16; threshold,
+    set_coeff, and inverse keep that dtype."""
+    for backend in ("fma", "xla"):
+        _facade_bf16_roundtrip(rng, backend)
+
+
+def _facade_bf16_roundtrip(rng, backend):
     img = rng.uniform(0, 255, (256, 256)).astype(np.float32)
     W = Wavelets(img, wname="db4", levels=2, dtype=jnp.bfloat16,
-                 backend="pallas")
+                 backend=backend)
     W.forward()
-    assert W._coeffs.approx.dtype == jnp.float32     # f32 A-chain
-    assert W._coeffs.details[0][0].dtype == jnp.bfloat16
-    # set_coeff must not downcast the f32 approximation
+    assert all(t.dtype == jnp.bfloat16
+               for t in jax.tree_util.tree_leaves(W._coeffs))
     a = W.get_coeff(0)
     W.set_coeff(a, 0)
-    assert W._coeffs.approx.dtype == jnp.float32
+    assert W._coeffs.approx.dtype == jnp.bfloat16
     W.soft_threshold(2.0)
     assert W._coeffs.details[0][0].dtype == jnp.bfloat16
     W.set_image(np.zeros_like(img))
@@ -308,16 +311,20 @@ def test_facade_bf16_mode(rng, monkeypatch):
     assert np.abs(np.asarray(out, np.float32) - img).max() < 40
 
 
-def test_facade_bf16_mode_3d(rng, monkeypatch):
-    """bf16 serving mode through the facade for a VOLUME: f32 A-chain +
-    bf16 details on the 3D MXU composition, bf16 reconstruction."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
+def test_facade_bf16_mode_3d(rng):
+    """bf16-fast tier through the facade for a VOLUME: bf16 subbands and
+    a bf16 reconstruction within the bf16 storage floor."""
+    for backend in ("fma", "xla"):
+        _facade_bf16_roundtrip_3d(rng, backend)
+
+
+def _facade_bf16_roundtrip_3d(rng, backend):
     vol = rng.uniform(0, 255, (32, 64, 256)).astype(np.float32)
     W = Wavelets(vol, wname="db4", levels=2, dtype=jnp.bfloat16,
-                 backend="pallas")
+                 backend=backend)
     W.forward()
-    assert W._coeffs.approx.dtype == jnp.float32
-    assert W._coeffs.details[0][0].dtype == jnp.bfloat16
+    assert all(t.dtype == jnp.bfloat16
+               for t in jax.tree_util.tree_leaves(W._coeffs))
     W.set_image(np.zeros_like(vol))
     out = W.inverse()
     assert out.dtype == jnp.bfloat16

@@ -1,8 +1,8 @@
-"""The TPU-native `fma` backend must match the gather oracle bit-semantics.
+"""The `fma` backend must match the gather oracle bit-semantics.
 
 Kept small: the broad semantic sweeps run on the platform-default backend;
 this module pins fma == gather on representative parities/sizes so the
-TPU production path is covered by the CPU suite.
+GPU's default formulation is covered by the CPU suite.
 """
 import jax
 import jax.numpy as jnp

@@ -36,7 +36,7 @@ def test_haar2d_pr_exact(rng):
 
 def test_haar1d_pr_exact(rng):
     """Unlike the reference 1D haar (known FIXME, ~1e-5 error,
-    src/haar.cu:190-192), the TPU path is exact."""
+    src/haar.cu:190-192), this path is exact."""
     x = jnp.asarray(rng.uniform(0, 255, (4, 1024)))
     xr = H.haar_idwt1d(H.haar_dwt1d(x, 5), 1024)
     assert float(jnp.abs(xr - x).max()) < 1e-10

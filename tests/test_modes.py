@@ -230,26 +230,25 @@ def test_facade_mode_errors():
 
 
 def test_facade_precision_tiers_coexist(rng):
-    """Two instances with different tiers in ONE process (the round-4
-    env-var staleness hazard this API closes).  On CPU the tiers don't
-    change the kernels (pallas is TPU-only), so assert the spec/info
-    plumbing and per-instance jit keys instead of numerics."""
+    """Two instances with different tiers in ONE process: each keeps its
+    tier in its spec (distinct jit keys), the bf16 tier implies bf16
+    arrays, and tiers that no longer exist raise."""
     from pdwt_tpu import Wavelets
 
     img = rng.standard_normal((16, 16)).astype(np.float32)
     We = Wavelets(img, wname="db2", levels=2, precision="exact")
-    Wm = Wavelets(img, wname="db2", levels=2, precision="mixed")
-    assert We.spec.precision == "exact" and Wm.spec.precision == "mixed"
-    assert We.spec != Wm.spec  # distinct jit keys
-    ce, cm = We.forward(), Wm.forward()
-    np.testing.assert_allclose(np.asarray(ce.approx), np.asarray(cm.approx),
-                               atol=1e-6)
-    assert We.info()["precision"] == "exact"
-    # bf16 tier implies bf16 arrays when dtype is unset
-    Wb = Wavelets(img, wname="db2", levels=2, precision="bf16-balanced")
+    Wb = Wavelets(img, wname="db2", levels=2, precision="bf16-fast")
+    assert We.spec.precision == "exact" and Wb.spec.precision == "bf16-fast"
+    assert We.spec != Wb.spec  # distinct jit keys
     assert Wb.spec.dtype == "bfloat16"
-    assert Wb.spec.precision == "bf16-balanced"
-    import jax.numpy as jnp
+    ce, cb = We.forward(), Wb.forward()
+    assert cb.approx.dtype == jnp.bfloat16
+    np.testing.assert_allclose(np.asarray(cb.approx, np.float32),
+                               np.asarray(ce.approx), atol=5e-2)
+    assert We.info()["precision"] == "exact"
+    for gone in ("mixed", "bf16-balanced", "bf16-accurate"):
+        with pytest.raises(ValueError, match="unknown precision"):
+            Wavelets(img, wname="db2", precision=gone)
     with pytest.raises(ValueError):
         Wavelets(img, wname="db2", precision="bf16-fast", dtype=jnp.float32)
     with pytest.raises(ValueError):

@@ -240,9 +240,10 @@ def test_debug_sanitizers(rng):
 
 
 def test_checkpoint_roundtrip_bf16(tmp_path, rng, monkeypatch):
-    """bf16-mode coefficient pytrees (f32 approx + bf16 details) must
-    survive the npz round-trip exactly — npz has no bfloat16 descriptor,
-    so the checkpoint tags and views them as uint16 (round-3 fix)."""
+    """bf16-tier coefficient pytrees, and pytrees mixing f32 and bf16
+    leaves, must survive the npz round-trip exactly — npz has no
+    bfloat16 descriptor, so the checkpoint tags and views them as
+    uint16."""
     import jax
     import jax.numpy as jnp
 
@@ -250,11 +251,12 @@ def test_checkpoint_roundtrip_bf16(tmp_path, rng, monkeypatch):
     from pdwt_tpu.filters import get_wavelet
     from pdwt_tpu.utils.checkpoint import load_coeffs, save_coeffs
 
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
     w = get_wavelet("db4")
     x = jnp.asarray(rng.uniform(0, 255, (256, 256)),
                     jnp.float32).astype(jnp.bfloat16)
-    c = sep.dwt2d(x, w, 2, backend="pallas")
+    c = sep.dwt2d(x, w, 2, backend="fma")
+    assert all(t.dtype == jnp.bfloat16 for t in jax.tree.leaves(c))
+    c = type(c)(c.approx.astype(jnp.float32), c.details)  # mixed dtypes
     p = str(tmp_path / "c.npz")
     save_coeffs(p, c)
     c2 = load_coeffs(p)

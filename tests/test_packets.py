@@ -143,16 +143,15 @@ def test_wp_errors(rng):
 
 
 def test_wp2d_interpret_pallas_matches_xla(rng, monkeypatch):
-    """The packet composition over the fused level kernels (interpret
-    mode) is bit-compatible with the conv backend."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
+    """The packet composition on the fma formulation matches the xla
+    formulation."""
     w = get_wavelet("db4")
     x = jnp.asarray(rng.standard_normal((64, 128)), jnp.float32)
-    pa = P.wp2d(x, w, 2, backend="pallas")
+    pa = P.wp2d(x, w, 2, backend="fma")
     xa = P.wp2d(x, w, 2, backend="xla")
     np.testing.assert_allclose(np.asarray(pa.nodes[2]),
                                np.asarray(xa.nodes[2]), atol=1e-4)
-    y = P.iwp2d(pa.nodes[2], w, (64, 128), backend="pallas")
+    y = P.iwp2d(pa.nodes[2], w, (64, 128), backend="fma")
     np.testing.assert_allclose(np.asarray(y), np.asarray(x), atol=1e-4)
 
 

@@ -69,7 +69,7 @@ def test_swt_shift_equivariance(rng):
 def test_swt_deep_levels_dilation_exceeds_size(rng):
     """Dilated support larger than the signal must still wrap correctly
     (the reference's single-wrap boundary logic cannot go this deep; the
-    mod-based TPU formulation handles it)."""
+    mod-based formulation handles it)."""
     w = get_wavelet("db2")
     x = jnp.asarray(rng.standard_normal((8, 16)))
     c = S.swt2d(x, w, 4)  # level 4: dilation 8, support 25 > 8 rows
@@ -78,7 +78,7 @@ def test_swt_deep_levels_dilation_exceeds_size(rng):
 
 
 def test_iswt2d_denoise_fused_matches_unfused(rng, monkeypatch):
-    """Fused threshold-in-inverse (pallas interpret) == threshold then
+    """Threshold-then-inverse in one step (fma formulation) == threshold then
     iswt2d; thresholded_norm1 == norm1 of the thresholded pytree."""
     import jax
     import jax.numpy as jnp
@@ -87,7 +87,6 @@ def test_iswt2d_denoise_fused_matches_unfused(rng, monkeypatch):
     from pdwt_tpu.core import separable as sep
     from pdwt_tpu.filters import get_wavelet
 
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
     w = get_wavelet("db4")
     x = jnp.asarray(rng.standard_normal((1, 128, 128)) * 10,
                     jnp.float32)
@@ -100,7 +99,7 @@ def test_iswt2d_denoise_fused_matches_unfused(rng, monkeypatch):
             y_ref = sep.iswt2d(c_thr, w, backend="gather")
             y_fused = sep.iswt2d_denoise(c, w, 3.0, mode=mode,
                                          normalize=normalize,
-                                         backend="pallas")
+                                         backend="fma")
             err = float(jnp.abs(y_fused - y_ref).max())
             assert err < 1e-4, (mode, normalize, err)
             n_ref = float(ops.norm1(c_thr))
@@ -111,8 +110,8 @@ def test_iswt2d_denoise_fused_matches_unfused(rng, monkeypatch):
 
 @pytest.mark.slow
 def test_iswt2d_denoise_fused_grad(rng, monkeypatch):
-    """jax.grad through the fused threshold+inverse (custom VJP, ADVICE
-    r2) equals grad through the unfused threshold->iswt2d composition —
+    """jax.grad through the one-step threshold+inverse equals grad
+    through the separate threshold->iswt2d composition —
     including the gradient w.r.t. beta on the soft path."""
     import jax
     import jax.numpy as jnp
@@ -121,7 +120,6 @@ def test_iswt2d_denoise_fused_grad(rng, monkeypatch):
     from pdwt_tpu.core import separable as sep
     from pdwt_tpu.filters import get_wavelet
 
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
     w = get_wavelet("db4")
     x = jnp.asarray(rng.standard_normal((1, 128, 128)) * 10, jnp.float32)
 
@@ -130,7 +128,7 @@ def test_iswt2d_denoise_fused_grad(rng, monkeypatch):
     for mode in ("soft", "hard", "garrote"):
         def loss_fused(v, b):
             c = sep.swt2d(v, w, 2, backend="gather")
-            y = sep.iswt2d_denoise(c, w, b, mode=mode, backend="pallas")
+            y = sep.iswt2d_denoise(c, w, b, mode=mode, backend="fma")
             return jnp.sum(y ** 2)
 
         def loss_ref(v, b):
@@ -174,12 +172,12 @@ def test_swt_keep_approx_multires(rng):
 
 
 def test_swt_keep_approx_interpret_pallas(rng, monkeypatch):
-    """The pallas path returns the same multi-resolution stack."""
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
+    """Both device formulations return the same multi-resolution
+    stack."""
     w = get_wavelet("db2")
     x = jnp.asarray(rng.standard_normal((16, 128)), jnp.float32)
     c_ref, ap_ref = S.swt2d(x, w, 2, keep_approx=True, backend="fma")
-    c_p, ap_p = S.swt2d(x, w, 2, keep_approx=True, backend="pallas")
+    c_p, ap_p = S.swt2d(x, w, 2, keep_approx=True, backend="xla")
     assert len(ap_p) == 2
     for a, b in zip(ap_ref, ap_p):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
@@ -196,13 +194,12 @@ def test_iswt2d_denoise_sequence_beta(rng, monkeypatch):
     from pdwt_tpu.core import separable as sep
     from pdwt_tpu.filters import get_wavelet
 
-    monkeypatch.setenv("PDWT_PALLAS_INTERPRET", "1")
     w = get_wavelet("db4")
     x = jnp.asarray(rng.standard_normal((128, 128)) * 10, jnp.float32)
     c = sep.swt2d(x, w, 2, backend="gather")
     betas = [(1.0, 2.0, 3.0), (4.0, 5.0, 6.0)]
     ref = sep.iswt2d(ops.soft_threshold(c, betas), w, backend="gather")
-    got = sep.iswt2d_denoise(c, w, betas, backend="pallas")
+    got = sep.iswt2d_denoise(c, w, betas, backend="fma")
     assert float(jnp.abs(got - ref).max()) < 1e-4
 
 
